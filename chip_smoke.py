@@ -10,22 +10,34 @@ when any phase fails. Phases, in order:
 1. the card's name and power limit (nvidia-smi);
 2. build: the port's CUDA kernels are compiled from ``csrc/`` (nvcc);
 3. kernels: each kernel's wrapper against its plain PyTorch twin on the
-   card, at B=252 and every pyramid level size of a 256x256 frame, with the
-   stated tolerance; per kernel and level the kernel's time, the plain
+   card, at B=252, with the stated tolerance: K1-K3 at every Farnebäck
+   pyramid level of a 256x256 frame, K4 and K5 at the DIS level shapes of
+   the three presets. Per kernel and shape the kernel's time, the plain
    twin's time and, where one PyTorch call computes the same function, that
    call's time (CUDA events, median of ``REPS``), beside the bound: the
    larger of its bytes at 3.35 TB/s and its float32 operations at
-   67 TFLOP/s (the H100 SXM data-sheet peaks);
-4. main path: a synthetic clip of ``FRAMES`` 256x256 frames (a smooth
-   texture zoomed about the centre with scale 1 + 0.06 sin(2 pi t / 30))
-   through the port's entry point ``process_video`` with default Params;
-   checks the funscript, the keyframe period and that every dispatched
-   window launched each kernel its expected number of times (8 / 12 / 12);
-5. kernels vs plain end to end: the first two full windows of the clip
-   through the flow program with ``kernels="auto"`` and ``kernels="plain"``;
-6. with ``--profile DIR`` only: one full window timed and traced
-   (torch.profiler), device time summed by kernel name, trace in DIR;
-7. one JSON line listing the kernels, then the contract line.
+   67 TFLOP/s (the H100 SXM data-sheet peaks). The JSON line sums each
+   kernel over the shapes its main path runs (all four levels for K1-K3;
+   the ``fast`` preset's two levels for K4 and K5);
+4. Farnebäck main path: a synthetic clip of ``FRAMES`` 256x256 frames (a
+   smooth texture zoomed about the centre with scale
+   1 + 0.06 sin(2 pi t / 30)) through the port's entry point
+   ``process_video`` with default Params; checks the funscript, the
+   keyframe period and that every dispatched window launched each kernel
+   its expected number of times (K1-K3 8 / 12 / 12, K4 and K5 none);
+5. Farnebäck kernels vs plain end to end: the first two full windows of the
+   clip through the flow program with ``kernels="auto"`` and ``"plain"``;
+6. DIS main path: the same clip through ``process_video`` with
+   ``backend="DIS"`` (preset fast); the same checks, with launches of
+   K4 34 and K5 2 per window and K1-K3 none;
+7. DIS kernels vs plain end to end, as in 5;
+8. device signal chain: a one-hour signal (108,000 samples at 30 fps)
+   through ``compute_actions`` with ``signal_backend="auto"`` on the card,
+   checked against the host chain (within 0.5 of its 0-100 curve);
+9. with ``--profile DIR`` only: one full window of each flow algorithm
+   timed and traced (torch.profiler), device time summed by kernel name,
+   traces in DIR;
+10. one JSON line listing the kernels, then the contract line.
 
 Imports nothing of JAX; data is made from ``SEED`` on the card.
 """
@@ -48,7 +60,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
 B_MAIN = 252               # pairs per full window: pair_batch 240 + 2 x 6 halo
 LEVELS = (256, 128, 64, 32)
-EXPECTED_PER_WINDOW = {"poly_exp": 8, "warp_bilinear": 12, "box_blur_solve": 12}
+# launches per dispatched window of each main path; every other kernel 0
+EXPECTED_PER_WINDOW = {
+    "farneback": {"poly_exp": 8, "warp_bilinear": 12, "box_blur_solve": 12},
+    # 17 = 16 descent steps + 1 densification sample, at 2 levels; one
+    # refinement warp per level
+    "dis": {"sample_abs": 34, "warp_planes": 2},
+}
+# DIS level shapes on 256x256 frames: source side h -> dense patch grid Ho
+K4_SHAPES = {"fast": ((32, 56), (64, 120)),
+             "medium": ((32, 72), (64, 152), (128, 328))}
+K5_SIZES = {"fast": (32, 64), "medium": (32, 64, 128)}
+SIGNAL_SAMPLES = 108_000  # one hour at 30 fps
 FRAMES = 1800             # 60 s at 30 fps
 SEED = 0
 REPS = 10                 # timings per median
@@ -69,6 +92,18 @@ KERNEL_META = {
         "replaces": "funscript_flow_tpu/ops/pallas/flow_step.py:71",
         "bytes_px": 5 * 4 + 2 * 4, "flops_px": 158,
         "tol": "rtol 2e-2, atol 1e-3",
+    },
+    # per output pixel; the source plane's bytes are added per call
+    "sample_abs": {
+        "source": "funscript_flow_tpu_torch/csrc/warp.cu",
+        "replaces": "funscript_flow_tpu/ops/pallas/warp.py:252",
+        "bytes_px": 2 * 4 + 4, "flops_px": 17, "tol": "atol 2e-5",
+    },
+    "warp_planes": {
+        "source": "funscript_flow_tpu_torch/csrc/warp.cu",
+        "replaces": "funscript_flow_tpu/ops/pallas/warp.py:226",
+        "bytes_px": 2 * 4 + 3 * 4 + 3 * 4, "flops_px": 35,
+        "tol": "atol 1e-5",
     },
 }
 
@@ -99,11 +134,32 @@ def time_ms(torch, fn) -> float:
     return statistics.median(times)
 
 
-def bound_ms(name: str, n_px: int):
+def bound_ms(name: str, n_px: int, extra_bytes: int = 0):
     m = KERNEL_META[name]
-    t_bytes = n_px * m["bytes_px"] / HBM_BYTES_PER_S * 1e3
+    t_bytes = (n_px * m["bytes_px"] + extra_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = n_px * m["flops_px"] / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _row(out, name, shape, err, t_k, t_p, t_l, n_px, extra_bytes=0,
+         summed=True):
+    """Print one kernel/shape line; add it to ``out[name]`` if ``summed``."""
+    b_ms, _ = bound_ms(name, n_px, extra_bytes)
+    lib = "null" if t_l is None else f"{t_l:.4f}"
+    print(f"kernel {name} B={B_MAIN} {shape}: max_abs_err={err:.3g} "
+          f"(tol {KERNEL_META[name]['tol']}) ms={t_k:.4f} "
+          f"plain_ms={t_p:.4f} library_ms={lib} bound_ms={b_ms:.4f}")
+    o = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                              "bound_ms": 0.0, "library_ms": 0.0, "px": 0,
+                              "extra_bytes": 0})
+    o["max_abs_err"] = max(o["max_abs_err"], err)
+    if summed:
+        o["ms"] += t_k
+        o["plain_ms"] += t_p
+        o["bound_ms"] += b_ms
+        o["library_ms"] = None if t_l is None else o["library_ms"] + t_l
+        o["px"] += n_px
+        o["extra_bytes"] += extra_bytes
 
 
 def kernel_phase(torch, dev) -> dict:
@@ -123,9 +179,7 @@ def kernel_phase(torch, dev) -> dict:
                      np.outer(xg, xg) * ig55])
     bank = torch.from_numpy(bank.astype(np.float32))[:, None].to(dev)
 
-    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "library_ms": 0.0, "px": 0}
-           for k in KERNEL_META}
+    out = {}
     for S in LEVELS:
         B = B_MAIN
         n_px = B * S * S
@@ -182,21 +236,95 @@ def kernel_phase(torch, dev) -> dict:
         rows.append(("box_blur_solve", err3, t_k, t_p, None))
 
         for name, err, t_k, t_p, t_l in rows:
-            b_ms, _ = bound_ms(name, n_px)
-            o = out[name]
-            o["max_abs_err"] = max(o["max_abs_err"], err)
-            o["ms"] += t_k
-            o["plain_ms"] += t_p
-            o["bound_ms"] += b_ms
-            o["library_ms"] = None if t_l is None else o["library_ms"] + t_l
-            o["px"] += n_px
-            lib = "null" if t_l is None else f"{t_l:.4f}"
-            print(f"kernel {name} B={B} {S}x{S}: max_abs_err={err:.3g} "
-                  f"(tol {KERNEL_META[name]['tol']}) ms={t_k:.4f} "
-                  f"plain_ms={t_p:.4f} library_ms={lib} bound_ms={b_ms:.4f}")
+            _row(out, name, f"{S}x{S}", err, t_k, t_p, t_l, n_px)
         torch.cuda.empty_cache()
+    out.update(dis_kernel_phase(torch, dev, gen))
     for name, o in out.items():
-        o["bound_by"] = bound_ms(name, o["px"])[1]
+        o["bound_by"] = bound_ms(name, o["px"], o["extra_bytes"])[1]
+    return out
+
+
+def dis_kernel_phase(torch, dev, gen) -> dict:
+    """K4 and K5 against their plain twins at the DIS level shapes of the
+    three presets on 256x256 frames, B=252. Sums (for the JSON line) cover
+    the fast preset's shapes, the ones the DIS main path runs; each preset's
+    sums are printed."""
+    import torch.nn.functional as F
+
+    from funscript_flow_tpu_torch.models import dis
+    from funscript_flow_tpu_torch.ops import farneback as fb
+    from funscript_flow_tpu_torch.ops.cuda import warp
+
+    B = B_MAIN
+    out = {}
+    per_preset = {}
+    shapes = sorted({s for v in K4_SHAPES.values() for s in v})
+    for h, Ho in shapes:
+        img = torch.rand((B, h, h), generator=gen, device=dev) * 255
+        fy = torch.rand((B, Ho, Ho), generator=gen, device=dev) * (h - 1)
+        fx = torch.rand((B, Ho, Ho), generator=gen, device=dev) * (h - 1)
+        got = warp.sample_abs(img, fy, fx)
+        want = dis.bilinear_abs(img, fy, fx)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= 2e-5, f"sample_abs {h}->{Ho}: max abs err {err}")
+        grid = torch.stack([fx / (h - 1) * 2 - 1, fy / (h - 1) * 2 - 1], -1)
+        t_k = time_ms(torch, lambda: warp.sample_abs(img, fy, fx))
+        t_p = time_ms(torch, lambda: dis.bilinear_abs(img, fy, fx))
+        t_l = time_ms(torch, lambda: F.grid_sample(
+            img[:, None], grid, mode="bilinear", padding_mode="border",
+            align_corners=True))
+        n_px, src = B * Ho * Ho, B * h * h * 4
+        in_fast = (h, Ho) in K4_SHAPES["fast"]
+        _row(out, "sample_abs", f"{h}x{h}->{Ho}x{Ho}", err, t_k, t_p, t_l,
+             n_px, src, summed=in_fast)
+        for preset, shp in K4_SHAPES.items():
+            if (h, Ho) in shp:
+                acc = per_preset.setdefault(("sample_abs", preset), [0.0] * 4)
+                for i, t in enumerate((t_k, t_p, t_l,
+                                       bound_ms("sample_abs", n_px, src)[0])):
+                    acc[i] += t
+        del img, fy, fx, got, want, grid
+
+    for S in sorted({s for v in K5_SIZES.values() for s in v}):
+        planes = [torch.randn((B, S, S), generator=gen, device=dev) * 40
+                  for _ in range(3)]
+        ys = torch.arange(S, device=dev, dtype=torch.float32)[:, None]
+        xs = torch.arange(S, device=dev, dtype=torch.float32)[None, :]
+        u = torch.randn((B, S, S), generator=gen, device=dev) * 2
+        v = torch.randn((B, S, S), generator=gen, device=dev) * 2
+        # pre-clamped as in dis.variational_refinement
+        u = (torch.clamp(xs + u, 0.0, S - 1.0) - xs).contiguous()
+        v = (torch.clamp(ys + v, 0.0, S - 1.0) - ys).contiguous()
+        got = warp.warp_planes(planes, u, v)
+        want = fb.warp_bilinear(torch.stack(planes, 1), u, v)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"warp_planes {S}px: max abs err {err}")
+        stacked = torch.stack(planes, 1)
+        grid = torch.stack([(xs + u) / (S - 1) * 2 - 1,
+                            (ys + v) / (S - 1) * 2 - 1], -1)
+        t_k = time_ms(torch, lambda: warp.warp_planes(planes, u, v))
+        t_p = time_ms(torch, lambda: fb.warp_bilinear(
+            torch.stack(planes, 1), u, v))
+        t_l = time_ms(torch, lambda: F.grid_sample(
+            stacked, grid, mode="bilinear", padding_mode="border",
+            align_corners=True))
+        n_px = B * S * S
+        _row(out, "warp_planes", f"{S}x{S}", err, t_k, t_p, t_l, n_px,
+             summed=S in K5_SIZES["fast"])
+        for preset, sizes in K5_SIZES.items():
+            if S in sizes:
+                acc = per_preset.setdefault(("warp_planes", preset), [0.0] * 4)
+                for i, t in enumerate((t_k, t_p, t_l,
+                                       bound_ms("warp_planes", n_px)[0])):
+                    acc[i] += t
+        del planes, u, v, got, want, stacked, grid
+        torch.cuda.empty_cache()
+    for (name, preset), (t_k, t_p, t_l, b) in sorted(per_preset.items()):
+        print(f"kernel {name} preset {preset}, summed over its levels: "
+              f"ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
+              f"bound_ms={b:.4f}")
     return out
 
 
@@ -299,9 +427,45 @@ def check_funscript(fs: dict) -> float:
 # that one-frame quantization and a frame more.
 GAP_MS = 500.0
 GAP_TOL_MS = 70.0
+# The same for the DIS main path: main_path(torch, cpu, make_clip(torch,
+# cpu, 1800, 0), Params(overwrite=True, backend="DIS", pair_batch=64))
+# gave 123 actions, 117 of the gaps 467 or 533 ms, median 467 ms.
+DIS_GAP_MS = 500.0
+DIS_GAP_TOL_MS = 70.0
 
 
-def kernels_vs_plain(torch, dev, frames) -> dict:
+def check_launches(counts: dict, windows: int, algorithm: str) -> None:
+    """Each kernel of ``algorithm``'s path launched its count per window,
+    every other kernel not at all."""
+    per = EXPECTED_PER_WINDOW[algorithm]
+    for name in KERNEL_META:
+        want = per.get(name, 0) * windows
+        check(counts[name] == want,
+              f"{algorithm}: {name} launched {counts[name]} times, "
+              f"expected {want}")
+
+
+def run_main_path(torch, dev, frames, algorithm: str) -> dict:
+    """One main path through ``process_video``, with its checks."""
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    backend = "DIS" if algorithm == "dis" else "CUDA"
+    mp = main_path(torch, dev, frames, Params(overwrite=True, backend=backend))
+    gap = check_funscript(mp["funscript"])
+    print(f"main path {algorithm}: {mp['pairs']} pairs in {mp['windows']} "
+          f"windows, wall {mp['wall']:.3f} s, "
+          f"{mp['pairs'] / mp['wall']:.1f} pairs/s, "
+          f"{len(mp['funscript']['actions'])} actions, median keyframe "
+          f"gap {gap:.1f} ms; launches {mp['counts']}")
+    check_launches(mp["counts"], mp["windows"], algorithm)
+    want, tol = ((DIS_GAP_MS, DIS_GAP_TOL_MS) if algorithm == "dis"
+                 else (GAP_MS, GAP_TOL_MS))
+    check(abs(gap - want) <= tol,
+          f"{algorithm}: median keyframe gap {gap} ms, expected {want} +- {tol}")
+    return mp
+
+
+def kernels_vs_plain(torch, dev, frames, algorithm: str) -> dict:
     """First two full windows through the flow program, kernels vs plain;
     returns the max abs difference per output (bars of tests/test_flow.py:
     centers 1.0, dots 5e-3, mean_mag 1e-3)."""
@@ -309,18 +473,62 @@ def kernels_vs_plain(torch, dev, frames) -> dict:
                                                           PipelineConfig)
 
     clip = np.stack(frames[: 2 * 240 + 1])
-    res = {k: FlowAnalyzer(PipelineConfig(kernels=k), device=dev)
+    res = {k: FlowAnalyzer(PipelineConfig(flow_algorithm=algorithm,
+                                          kernels=k), device=dev)
            .analyze_video_pairs(clip) for k in ("auto", "plain")}
     a, p = res["auto"], res["plain"]
     diff = {k: float(np.abs(a[k].astype(np.float64) - p[k]).max())
             for k in ("dots", "centers", "mean_mag")}
-    check(bool((a["cuts"] == p["cuts"]).all()), "cuts differ")
+    check(bool((a["cuts"] == p["cuts"]).all()), f"{algorithm}: cuts differ")
     for k, tol in (("centers", 1.0), ("dots", 5e-3), ("mean_mag", 1e-3)):
-        check(diff[k] <= tol, f"{k}: kernels vs plain {diff[k]} > {tol}")
+        check(diff[k] <= tol,
+              f"{algorithm}: {k}: kernels vs plain {diff[k]} > {tol}")
     return diff
 
 
-def profile_window(torch, dev, frames, out_dir: str) -> None:
+def signal_chain_phase(torch, dev) -> None:
+    """A one-hour signal through ``compute_actions`` with
+    ``signal_backend="auto"`` on the card: it must route to the device
+    chain and stay within 0.5 of the host chain's 0-100 curve
+    (tests/test_signal_jax.py:109). Prints both chains' times."""
+    from funscript_flow_tpu_torch.runner import compute_actions
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    rng = np.random.default_rng(SEED)
+    n = SIGNAL_SAMPLES
+    t = np.arange(n)
+    dots = (np.sin(2 * np.pi * t / 45.0) * 3 + rng.normal(0, 0.2, n)
+            ).astype(np.float32)
+    cuts = np.zeros(n, bool)
+    cuts[[9_000, 40_000, 77_000]] = True  # scene cuts: the curve restarts
+    ts = np.arange(n)
+    times = {}
+    for backend in ("auto", "auto", "host"):  # the first auto run warms up
+        logs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acts, norm = compute_actions(dots, cuts, ts, 30.0, 30.0,
+                                     Params(signal_backend=backend),
+                                     logs.append, device=dev)
+        times[backend] = time.perf_counter() - t0
+        if backend == "auto":
+            check(any("Signal chain: device" in m for m in logs),
+                  f"the one-hour signal did not take the device chain: {logs}")
+            dev_acts, dev_norm = acts, norm
+    err = float(np.abs(dev_norm - norm).max())
+    print(f"signal chain, {n} samples: device {times['auto']:.4f} s "
+          f"({len(dev_acts)} actions), host {times['host']:.4f} s "
+          f"({len(acts)} actions); max |norm - host norm| {err:.3g}")
+    check(err <= 0.5, f"device signal chain off the host chain by {err}")
+    check(len(dev_acts) > 1000 and all(0 <= a["pos"] <= 100 for a in dev_acts),
+          "device signal chain: implausible actions")
+
+
+HAND_KERNELS = ("poly_exp_kernel", "warp_bilinear_kernel",
+                "box_blur_solve_kernel", "sample_abs_kernel")
+
+
+def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
     """Where one full window's time goes: the flow program on 253 frames
     (252 pairs), timed with CUDA events for kernels="auto" and "plain",
     then one traced run whose device time is summed by kernel name.
@@ -332,13 +540,13 @@ def profile_window(torch, dev, frames, out_dir: str) -> None:
 
     win = torch.from_numpy(np.stack(frames[: B_MAIN + 1])).to(dev)
     for k in ("auto", "plain"):
-        cfg = PipelineConfig(kernels=k)
+        cfg = PipelineConfig(flow_algorithm=algorithm, kernels=k)
         ms = time_ms(torch, lambda: flow_chunk_program(win, B_MAIN, cfg))
-        print(f"profile: flow program, one {B_MAIN}-pair window, "
+        print(f"profile {algorithm}: flow program, one {B_MAIN}-pair window, "
               f"kernels={k}: {ms:.3f} ms ({B_MAIN / ms * 1e3:.1f} pairs/s)")
     from torch.autograd import DeviceType
 
-    cfg = PipelineConfig()
+    cfg = PipelineConfig(flow_algorithm=algorithm)
     for cycle in range(2):  # the first cycle pays the tracer's start-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -347,7 +555,8 @@ def profile_window(torch, dev, frames, out_dir: str) -> None:
             flow_chunk_program(win, B_MAIN, cfg)["dots"].cpu()
         wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "window_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          f"window_trace_{algorithm}.json"))
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -358,21 +567,28 @@ def profile_window(torch, dev, frames, out_dir: str) -> None:
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                   reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile: traced window wall {wall_ms:.3f} ms, device time "
-          f"{total / 1e3:.3f} ms ({total / 1e3 / wall_ms:.1%} busy), "
+    print(f"profile {algorithm}: traced window wall {wall_ms:.3f} ms, device "
+          f"time {total / 1e3:.3f} ms ({total / 1e3 / wall_ms:.1%} busy), "
           f"{sum(r[2] for r in rows)} device events")
-    ours = {"poly_exp_kernel", "warp_bilinear_kernel", "box_blur_solve_kernel"}
-    mine = sum(r[0] for r in rows if any(o in r[1] for o in ours))
-    print(f"profile: hand kernels {mine / 1e3:.3f} ms "
+    for name in HAND_KERNELS:
+        hit = [r for r in rows if name in r[1]]
+        if hit:
+            print(f"profile {algorithm}: {name} "
+                  f"{sum(r[0] for r in hit) / 1e3:.3f} ms in "
+                  f"{sum(r[2] for r in hit)} launches")
+    mine = sum(r[0] for r in rows if any(o in r[1] for o in HAND_KERNELS))
+    print(f"profile {algorithm}: hand kernels {mine / 1e3:.3f} ms "
           f"({mine / max(total, 1e-9):.1%} of device time)")
     for us, key, count in rows[:15]:
-        print(f"profile: {us / 1e3:9.3f} ms {count:5d}x {key[:90]}")
+        print(f"profile {algorithm}: {us / 1e3:9.3f} ms {count:5d}x "
+              f"{key[:90]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
-                    help="also profile one full window; trace written here")
+                    help="also profile one full window of each flow "
+                         "algorithm; traces written here")
     args = ap.parse_args(argv)
 
     import torch
@@ -409,23 +625,16 @@ def main(argv=None) -> int:
         kern = kernel_phase(torch, dev)
 
         frames = make_clip(torch, dev)
-        mp = main_path(torch, dev, frames)
-        gap = check_funscript(mp["funscript"])
-        print(f"main path: {mp['pairs']} pairs in {mp['windows']} windows, "
-              f"wall {mp['wall']:.3f} s, {mp['pairs'] / mp['wall']:.1f} pairs/s, "
-              f"{len(mp['funscript']['actions'])} actions, median keyframe "
-              f"gap {gap:.1f} ms; launches {mp['counts']}")
-        for name, per in EXPECTED_PER_WINDOW.items():
-            want = per * mp["windows"]
-            check(mp["counts"][name] == want,
-                  f"{name}: {mp['counts'][name]} launches, expected {want}")
-        check(abs(gap - GAP_MS) <= GAP_TOL_MS,
-              f"median keyframe gap {gap} ms, expected {GAP_MS} +- {GAP_TOL_MS}")
-
-        diff = kernels_vs_plain(torch, dev, frames)
-        print(f"kernels vs plain, first two windows: max abs diff {diff}")
+        paths = {}
+        for algorithm in ("farneback", "dis"):
+            paths[algorithm] = run_main_path(torch, dev, frames, algorithm)
+            diff = kernels_vs_plain(torch, dev, frames, algorithm)
+            print(f"kernels vs plain {algorithm}, first two windows: "
+                  f"max abs diff {diff}")
+        signal_chain_phase(torch, dev)
         if args.profile:
-            profile_window(torch, dev, frames, args.profile)
+            for algorithm in ("farneback", "dis"):
+                profile_window(torch, dev, frames, args.profile, algorithm)
     except Failure as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -434,7 +643,8 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda",
          "source": KERNEL_META[name]["source"],
          "replaces": KERNEL_META[name]["replaces"],
-         "launches": mp["counts"][name],
+         "launches": paths["dis" if name in EXPECTED_PER_WINDOW["dis"]
+                             else "farneback"]["counts"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": k["library_ms"]}

@@ -1,15 +1,17 @@
 """funscript_flow_tpu_torch — the PyTorch/CUDA port of funscript_flow_tpu.
 
 Video in, ``.funscript`` out, on an NVIDIA GPU: host decode feeds uint8
-grayscale frame windows to the card, pyramidal Farnebäck flow and the
-per-pair reductions run there (the flow's three hot steps are hand-written
-CUDA kernels, ``csrc/``), and the host NumPy signal chain emits the
-funscript. Same module layout as the JAX package, so each counterpart is
-easy to find:
+grayscale frame windows to the card, pyramidal Farnebäck flow (or DIS flow,
+``backend="DIS"``) and the per-pair reductions run there (the flows' hot
+steps are five hand-written CUDA kernels, ``csrc/``), and the signal chain
+emits the funscript: the NumPy host chain, or for clips of 65,536 samples
+or more the device chain. Same module layout as the JAX package, so each
+counterpart is easy to find:
 
   io/        host decode, funscript JSON
-  ops/       flow + reductions (PyTorch), cuda/ kernel wrappers, signal_host
-  models/    the per-window flow program and its streaming driver
+  ops/       Farnebäck flow, reductions, signal chains (host and device),
+             cuda/ kernel wrappers
+  models/    DIS flow, the per-window flow program and its streaming driver
   utils/     params, logging, strings
   runner     per-video driver + headless folder runner
   cli        headless entry point

@@ -20,6 +20,7 @@ import torch
 
 from .. import default_device
 from ..ops.farneback import FarnebackConfig, farneback_flow_planes
+from .dis import DISConfig, dis_flow_planes
 from ..ops.reductions import (
     CENTER_SMOOTH_RADIUS,
     max_divergence_center,
@@ -39,11 +40,13 @@ KEYS = ("dots", "cuts", "centers", "mean_mag", "val_pos")
 class PipelineConfig:
     """Flow-program parameters. ``kernels``: "auto" (the CUDA kernels on a
     CUDA device) or "plain" (the plain PyTorch twins; the reference run of
-    the kernel checks)."""
+    the kernel checks), for either flow algorithm."""
 
     pov_mode: bool = False
     cut_threshold: float = 7.0  # reference :876 (config-only key, default 7)
     pair_batch: int = 240      # device micro-batch of pairs
+    flow_algorithm: str = "farneback"  # farneback | dis (reference "DNN" backend)
+    dis_preset: str = "fast"           # ultrafast | fast | medium (cv2 presets)
     kernels: str = "auto"
     pyr_scale: float = 0.5
     levels: int = 3
@@ -52,10 +55,17 @@ class PipelineConfig:
     poly_n: int = 5
     poly_sigma: float = 1.2
 
+    def __post_init__(self):
+        if self.flow_algorithm not in ("farneback", "dis"):
+            raise ValueError(f"Unknown flow_algorithm: {self.flow_algorithm}")
+
     def farneback(self) -> FarnebackConfig:
         return FarnebackConfig(self.pyr_scale, self.levels, self.winsize,
                                self.iterations, self.poly_n, self.poly_sigma,
                                kernels=self.kernels)
+
+    def dis(self) -> DISConfig:
+        return DISConfig.preset(self.dis_preset, kernels=self.kernels)
 
 
 def rgb_to_gray_cv(rgb: torch.Tensor) -> torch.Tensor:
@@ -78,14 +88,17 @@ def flow_chunk_program(frames: torch.Tensor, n_pairs: int,
     ``n_pairs`` valid-pair count -> dict(dots [B], cuts [B], centers [B,2],
     raw_centers [B,2], mean_mag [B], val_pos [B]), on the same device.
 
-    gray -> batched Farnebäck flow -> divergence-argmax centers (or fixed
-    bottom-center in POV mode, reference :880-882) -> cut flags -> +/-6
+    gray -> batched Farnebäck (or DIS) flow -> divergence-argmax centers (or
+    fixed bottom-center in POV mode, reference :880-882) -> cut flags -> +/-6
     temporal center smoothing -> weighted radial projection. Pairs at or
     past ``n_pairs`` are padding: their scalars are zeroed.
     """
     gray = frames.to(torch.float32) if frames.dim() == 3 else rgb_to_gray_cv(frames)
     f0, f1 = gray[:-1], gray[1:]
-    u, v = farneback_flow_planes(f0, f1, cfg.farneback())
+    if cfg.flow_algorithm == "dis":
+        u, v = dis_flow_planes(f0, f1, cfg.dis())
+    else:
+        u, v = farneback_flow_planes(f0, f1, cfg.farneback())
 
     B, H, W = f0.shape
     dev = u.device

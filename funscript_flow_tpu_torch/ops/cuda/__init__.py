@@ -2,29 +2,27 @@
 JAX package's ``ops/pallas``).
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and computes
-its plain twin from ``ops.farneback`` on a CPU tensor; there is no fallback
-from the one to the other. Each keeps a plain integer ``launches`` count,
-incremented only where the kernel is launched.
+its plain twin on a CPU tensor; there is no fallback from the one to the
+other. Each entry point has its own launch count (``_build.launches``),
+incremented only where its kernel is launched.
 """
 
 from __future__ import annotations
 
-from . import flow_step, polyexp, warp
+from . import _build
 
 __all__ = ["KERNELS", "launch_counts", "reset_launches"]
 
-# kernel name -> wrapper module
-KERNELS = {
-    "poly_exp": polyexp,
-    "warp_bilinear": warp,
-    "box_blur_solve": flow_step,
-}
+# the wrapper entry points, one per TPU kernel they replace:
+# K1 polyexp.poly_exp, K2 warp.warp_bilinear, K3 flow_step.box_blur_solve,
+# K4 warp.sample_abs, K5 warp.warp_planes
+KERNELS = ("poly_exp", "warp_bilinear", "box_blur_solve", "sample_abs",
+           "warp_planes")
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: _build.launches.get(name, 0) for name in KERNELS}
 
 
 def reset_launches() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    _build.launches.clear()

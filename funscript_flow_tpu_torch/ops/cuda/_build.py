@@ -47,6 +47,8 @@ _SIGNATURES = {
     "ff_poly_exp": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # R [B,P,H,W], u, v, out [B,P,H,W], B, P, H, W, stream
     "ff_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # img [B,h,w], fy, fx, out [B,Ho,Wo], B, h, w, Ho, Wo, stream
+    "ff_sample_abs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # m0..m4, u, v, B, H, W, win, inv_area, stream
     "ff_box_blur_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
@@ -54,6 +56,9 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}  # seconds, log, rebuilt — read by chip_smoke.py
+# kernel launches per wrapper entry point since the last reset
+# (ops.cuda.launch_counts / reset_launches)
+launches: dict = {}
 
 
 def _nvcc() -> str:
@@ -135,8 +140,9 @@ def check_tensor(t: torch.Tensor, name: str, shape=None) -> None:
                          f"got {tuple(t.shape)}")
 
 
-def launch(fn_name: str, device: torch.device, *args) -> None:
-    """Call one C entry point on ``device``'s current stream; raise if it
+def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+    """Call one C entry point on ``device``'s current stream and add one to
+    the launch count of the wrapper's entry point ``kernel``; raise if it
     reports a CUDA error (a refused launch never runs, and a later
     synchronize would not report it)."""
     if device.type != "cuda":
@@ -147,3 +153,4 @@ def launch(fn_name: str, device: torch.device, *args) -> None:
         rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError_t {rc}")
+    launches[kernel] = launches.get(kernel, 0) + 1

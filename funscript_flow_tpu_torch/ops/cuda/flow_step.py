@@ -15,7 +15,6 @@ from ._build import check_tensor, launch
 __all__ = ["box_blur_solve", "MAX_WINSIZE"]
 
 MAX_WINSIZE = 31  # csrc/flow_step.cu MAX_R = 15
-launches = 0      # kernel launches since the last reset (ops.cuda.reset_launches)
 
 
 def box_blur_solve(M, winsize: int = 15):
@@ -25,7 +24,6 @@ def box_blur_solve(M, winsize: int = 15):
 
     A CUDA tensor launches the kernel; a CPU tensor computes the plain twin.
     """
-    global launches
     if len(M) != 5:
         raise ValueError(f"M: expected 5 planes, got {len(M)}")
     shape = tuple(M[0].shape)
@@ -45,8 +43,7 @@ def box_blur_solve(M, winsize: int = 15):
     v = torch.empty_like(u)
     # the plain twin multiplies by the float32 rounding of 1/(win*win)
     inv_area = float(np.float32(1.0 / (winsize * winsize)))
-    launch("ff_box_blur_solve", M[0].device,
+    launch("box_blur_solve", "ff_box_blur_solve", M[0].device,
            *(m.data_ptr() for m in M), u.data_ptr(), v.data_ptr(),
            B, H, W, winsize, inv_area)
-    launches += 1
     return u, v

@@ -17,7 +17,6 @@ from ._build import check_tensor, launch
 __all__ = ["poly_exp", "MAX_POLY_N"]
 
 MAX_POLY_N = 8  # csrc/polyexp.cu MAX_N
-launches = 0    # kernel launches since the last reset (ops.cuda.reset_launches)
 
 
 def poly_exp(img: torch.Tensor, poly_n: int = 5,
@@ -28,7 +27,6 @@ def poly_exp(img: torch.Tensor, poly_n: int = 5,
 
     A CUDA tensor launches the kernel; a CPU tensor computes the plain twin.
     """
-    global launches
     check_tensor(img, "img")
     if img.dim() != 3:
         raise ValueError(f"img: expected [B, H, W], got {tuple(img.shape)}")
@@ -41,9 +39,8 @@ def poly_exp(img: torch.Tensor, poly_n: int = 5,
     g, xg, xxg, ig = farneback._poly_exp_tables(poly_n, poly_sigma)
     taps = np.ascontiguousarray(np.concatenate([g, xg, xxg]), np.float32)
     igs = np.asarray(ig, np.float32)
-    launch("ff_poly_exp", img.device, img.data_ptr(), out.data_ptr(),
-           B, H, W, poly_n,
+    launch("poly_exp", "ff_poly_exp", img.device, img.data_ptr(),
+           out.data_ptr(), B, H, W, poly_n,
            taps.ctypes.data_as(ctypes.c_void_p),
            igs.ctypes.data_as(ctypes.c_void_p))
-    launches += 1
     return out

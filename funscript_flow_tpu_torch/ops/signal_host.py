@@ -29,6 +29,7 @@ __all__ = [
     "rolling_normalize",
     "keyframe_indices",
     "actions_from_signal",
+    "actions_at",
     "signal_chain",
 ]
 
@@ -160,10 +161,14 @@ def actions_from_signal(norm, time_stamps, fps, keyframe_reduction=True, log_fun
     signals shorter than the 5-tap smoothing kernel grow to length 5 under
     ``np.convolve(mode='same')`` and can index past the timestamp array.
     """
-    if keyframe_reduction:
-        idx = keyframe_indices(norm)
-    else:
-        idx = range(len(norm))
+    idx = keyframe_indices(norm) if keyframe_reduction else range(len(norm))
+    return actions_at(idx, norm, time_stamps, fps, log_func)
+
+
+def actions_at(idx, norm, time_stamps, fps, log_func=None):
+    """The actions at the signal indices ``idx``, as
+    :func:`actions_from_signal` emits them (the device chain selects its
+    keyframes on the card and emits here)."""
     actions = []
     for ki in idx:
         try:

@@ -2,9 +2,10 @@
 ``funscript_flow_tpu.runner``).
 
 Decode streams on a prefetch thread, frame windows flow through the flow
-program on the card (models.pipeline), per-pair scalars accumulate on the
-host, and the host signal chain emits the funscript (reference
-FunscriptFlow.pyw:1094-1404, 2606-2638).
+program on the card (models.pipeline, Farnebäck or DIS), per-pair scalars
+accumulate on the host, and the signal chain (on the host, or on the card
+for long clips) emits the funscript (reference FunscriptFlow.pyw:1094-1404,
+2606-2638).
 
 Failure semantics match the reference: per-video isolation — an analysis
 error logs and moves on, aggregated into the returned ``error_occurred``
@@ -26,20 +27,23 @@ from .io import decode as iodec
 from .io.funscript import funscript_path, write_funscript
 from .models.pipeline import PipelineConfig, StreamingFlowAnalyzer
 from .ops import signal_host
+from .ops.signal import DISCONTINUITY_THRESHOLD, signal_chain_device
 from .utils.logging import StageTimers
 from .utils.params import Params
 from .utils.strings import STRINGS
 
 __all__ = ["process_video", "run_headless", "compute_actions",
-           "check_supported"]
+           "check_supported", "AUTO_DEVICE_MIN_SAMPLES"]
+
+# ~36 min of 30 fps samples: below this the exact float64 host chain is
+# used; at or above it, a clean signal runs on the device chain
+AUTO_DEVICE_MIN_SAMPLES = 65536
 
 
 def check_supported(params: Params) -> None:
     """Raise NotImplementedError for a setting whose code is not ported yet,
     naming its ROADMAP item."""
     todo = []
-    if params.backend == "DIS":
-        todo.append("backend DIS (models/dis.py with kernels K4/K5)")
     if params.mesh and params.mesh > 1:
         todo.append("mesh > 1 (parallel/*)")
     if params.clip_workers > 1:
@@ -50,33 +54,57 @@ def check_supported(params: Params) -> None:
         todo.append("profile_dir (profile_trace/devprof)")
     if params.use_native_decode == "on":
         todo.append("use_native_decode=on (the native decode runtime)")
-    if params.signal_backend == "device":
-        todo.append("signal_backend=device (ops/signal.py)")
     if todo:
         raise NotImplementedError(
             "not yet ported (ROADMAP.md, queue 1): " + "; ".join(todo))
 
 
 def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
-                    log_func=lambda m: None):
+                    log_func=lambda m: None, device=None):
     """Whole-video signal chain -> (funscript actions, norm curve).
 
     Window sizes derive from the effective fps (reference :1287, :1335).
-    The chain runs on the exact float64 host path at every length: the
-    device chain is not ported yet, so ``signal_backend='auto'`` resolves
-    to host.
+    ``signal_backend='auto'`` runs the exact float64 host chain, except for
+    signals of ``AUTO_DEVICE_MIN_SAMPLES`` or more with ``detrend_win >= 2``
+    and no cumulative-flow discontinuity, which run on the float32 device
+    chain (``ops.signal``) on ``device`` (``None`` means ``cuda:0``);
+    ``'device'`` forces the device chain, ``'host'`` the host chain.
     """
-    if params.signal_backend == "device":
-        raise NotImplementedError(
-            "signal_backend='device' is not yet ported (ops/signal.py)")
-    if params.signal_backend == "auto":
-        log_func("Signal chain: host (auto; the device chain is not ported).")
+    n = len(dots)
     detrend_win = int(params.detrend_window * effective_fps)
     norm_win = int(params.norm_window * effective_fps)
-    return signal_host.signal_chain(
-        dots, cuts, time_stamps, fps, detrend_win, norm_win,
-        params.keyframe_reduction,
-    )[0:2]
+
+    backend = params.signal_backend
+    if backend == "auto":
+        backend = "host"
+        if n >= AUTO_DEVICE_MIN_SAMPLES and detrend_win >= 2:
+            cum = signal_host.integrate_flow(dots, cuts)
+            if not (np.abs(np.diff(cum)) > DISCONTINUITY_THRESHOLD).any():
+                backend = "device"
+
+    if backend == "host":
+        log_func(f"Signal chain: host ({n} samples).")
+        return signal_host.signal_chain(
+            dots, cuts, time_stamps, fps, detrend_win, norm_win,
+            params.keyframe_reduction,
+        )[0:2]
+
+    dev = default_device(device)
+    log_func(f"Signal chain: device ({n} samples on {dev}).")
+    if n == 0:
+        return [], np.zeros(0, np.float64)
+    norm, mask = signal_chain_device(
+        torch.as_tensor(np.asarray(dots, np.float32), device=dev),
+        torch.as_tensor(np.asarray(cuts, bool), device=dev),
+        n, detrend_win, norm_win)
+    norm = norm.cpu().numpy().astype(np.float64)
+    if not params.keyframe_reduction:
+        idx = range(n)
+    elif n == 1:
+        idx = [0, 0]  # reference quirk (:1367, :1374)
+    else:
+        idx = np.nonzero(mask.cpu().numpy())[0]
+    return signal_host.actions_at(idx, norm, time_stamps, fps, log_func), norm
 
 
 def _decode_shards(params: Params) -> int:
@@ -156,7 +184,8 @@ def process_video(video_path: str, params: Params, log_func,
         f"FPS: {meta.fps:.2f}; downsampled to ~{meta.effective_fps:.2f} fps; "
         f"{n_samples} frames selected."
     )
-    log_func(f"Using backend: {params.backend} on {dev}")
+    preset = f" ({params.dis_preset})" if params.backend == "DIS" else ""
+    log_func(f"Using backend: {params.backend}{preset} on {dev}")
     if n_samples < 2:
         source.close()
         log_func(STRINGS["video_too_short"].format(n=n_samples))
@@ -166,6 +195,8 @@ def process_video(video_path: str, params: Params, log_func,
         pov_mode=params.pov_mode,
         cut_threshold=params.cut_threshold,
         pair_batch=params.pair_batch,
+        flow_algorithm="dis" if params.backend == "DIS" else "farneback",
+        dis_preset=params.dis_preset,
     )
     n_pairs_total = n_samples - 1
     analyzer = StreamingFlowAnalyzer(cfg, device=dev,
@@ -220,7 +251,7 @@ def process_video(video_path: str, params: Params, log_func,
     error_occurred = False
     actions, _norm = compute_actions(
         dots, cuts, time_stamps, meta.fps, meta.effective_fps, params,
-        log_func,
+        log_func, device=dev,
     )
     log_func(f"Keyframe reduction: {len(actions)} actions computed.")
     try:

@@ -259,8 +259,11 @@ def test_cpu_route_does_not_count_launches():
     R = polyexp.poly_exp(x)
     warp.warp_bilinear(R, x * 0, x * 0)
     flow_step.box_blur_solve(R.unbind(1), 15)
+    warp.sample_abs(x, x * 0, x * 0)
+    warp.warp_planes([x] * 3, x * 0, x * 0)
     assert kcuda.launch_counts() == {"poly_exp": 0, "warp_bilinear": 0,
-                                     "box_blur_solve": 0}
+                                     "box_blur_solve": 0, "sample_abs": 0,
+                                     "warp_planes": 0}
 
 
 # ---------------------------------------------- kernels on the card

@@ -33,7 +33,9 @@ def test_port_modules_listed():
     for want in ("funscript_flow_tpu_torch.runner",
                  "funscript_flow_tpu_torch.cli",
                  "funscript_flow_tpu_torch.models.pipeline",
+                 "funscript_flow_tpu_torch.models.dis",
                  "funscript_flow_tpu_torch.ops.farneback",
+                 "funscript_flow_tpu_torch.ops.signal",
                  "funscript_flow_tpu_torch.ops.cuda.polyexp",
                  "funscript_flow_tpu_torch.ops.cuda.warp",
                  "funscript_flow_tpu_torch.ops.cuda.flow_step",

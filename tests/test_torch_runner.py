@@ -125,9 +125,9 @@ def test_run_headless_folder(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"backend": "DIS"}, {"mesh": 2}, {"clip_workers": 2},
+    {"mesh": 2}, {"clip_workers": 2},
     {"checkpoint": True}, {"profile_dir": "prof"},
-    {"use_native_decode": "on"}, {"signal_backend": "device"}])
+    {"use_native_decode": "on"}])
 def test_not_yet_ported_settings_raise(kw, tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         trun.process_video(str(tmp_path / "x.mp4"), Params(**kw),
@@ -147,9 +147,13 @@ def test_compute_actions_host_chain(rng):
     assert got == want
     np.testing.assert_array_equal(norm, wnorm)
     assert any("host" in m for m in logs)
-    with pytest.raises(NotImplementedError):
-        trun.compute_actions(dots, cuts, ts, 30.0, 30.0,
-                             Params(signal_backend="device"))
+    # the device chain (tests/test_torch_signal.py) runs on the CPU when
+    # asked, and stays within half a position unit of the host chain
+    dgot, dnorm = trun.compute_actions(dots, cuts, ts, 30.0, 30.0,
+                                       Params(signal_backend="device"),
+                                       device="cpu")
+    np.testing.assert_allclose(dnorm, wnorm, atol=0.5)
+    assert [a["at"] for a in dgot] == [a["at"] for a in want]
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 200])
