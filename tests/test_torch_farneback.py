@@ -5,9 +5,11 @@ the same numpy inputs. Tolerances are the JAX package's own
 this CPU are far below them (see CHANGES.md).
 
 The kernel-vs-twin cases need a CUDA device: they carry the ``cuda`` marker
-and skip without one.
+and skip without one. Those of K2, K3 and K5 hold the kernel bitwise equal
+to its twin, at the odd shapes and winsizes too.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,22 @@ from funscript_flow_tpu_torch.ops.cuda import flow_step, polyexp, warp
 # the tests run in several worker processes at once: one torch thread
 # each keeps them from oversubscribing the cores
 torch.set_num_threads(1)
+
+
+# Odd shapes (B, H, W): not multiples of any kernel's tile, a single pixel,
+# a width under the blur's halo. The JAX references at these shapes run
+# under jax.jit: one compile per case instead of one per eager op (XLA
+# contracts products into FMAs there, so they differ from the twins by
+# rounding, within the tolerances below).
+ODD_SOLVE = {f"{h}x{w}-w{win}": ((b, h, w), win) for (b, h, w), win in [
+    ((3, 45, 77), 1), ((3, 45, 77), 3), ((3, 45, 77), 15), ((3, 45, 77), 31),
+    ((3, 1, 1), 31), ((3, 40, 5), 15)]}
+# (shape, planes, amplitude of a uniform displacement field in px)
+ODD_WARP = {f"{h}x{w}-p{P}-{amp:g}": ((b, h, w), P, amp)
+            for (b, h, w), P, amp in [((3, 45, 77), 5, 60.0),
+                                      ((3, 45, 77), 3, 60.0),
+                                      ((3, 45, 77), 3, 1.0),
+                                      ((3, 40, 5), 5, 60.0)]}
 
 
 @pytest.fixture
@@ -105,20 +123,36 @@ def warp_cases():
                                    interpret=True)
         cases[scale] = (planes, u, v, np.asarray(inb),
                         [np.asarray(x) for x in ref], np.asarray(pal))
+    # odd shapes, P=5 and P=3 (the K5 planes): the f32 XLA warp only, the
+    # Pallas kernel needs W % 128 == 0
+    warp_f32 = jax.jit(lambda p, u, v: jfb._warp_bilinear(
+        p, u, v, warp_dtype=jnp.float32))
+    for key, (shape, P, amp) in ODD_WARP.items():
+        planes = [rng.normal(size=shape).astype(np.float32) for _ in range(P)]
+        u = rng.uniform(-amp, amp, shape).astype(np.float32)
+        v = rng.uniform(-amp, amp, shape).astype(np.float32)
+        ref, inb = warp_f32(tuple(jnp.asarray(p) for p in planes),
+                            jnp.asarray(u), jnp.asarray(v))
+        cases[key] = (planes, u, v, np.asarray(inb),
+                      [np.asarray(x) for x in ref], None)
     return cases
 
 
-@pytest.mark.parametrize("scale", [0.5, 5.0, 60.0])
-@pytest.mark.parametrize("oracle", ["pallas", "xla"])
+@pytest.mark.parametrize("oracle,scale", [
+    pytest.param(o, s, id=f"{o}-{s}")
+    for s in (0.5, 5.0, 60.0) for o in ("pallas", "xla")] + [
+    pytest.param("xla", key, id=f"xla-{key}") for key in ODD_WARP])
 def test_warp_twin_matches_jax(warp_cases, scale, oracle, record_property):
     planes, u, v, inb, xla, pal = warp_cases[scale]
+    P = len(planes)
     R = torch.from_numpy(np.stack(planes, axis=1))
     got = warp.warp_bilinear(R, torch.from_numpy(u), torch.from_numpy(v))
-    wants = [pal[:, p] if oracle == "pallas" else xla[p] for p in range(5)]
+    assert got.shape == R.shape and inb.any()
+    wants = [pal[:, p] if oracle == "pallas" else xla[p] for p in range(P)]
     record_property("max_abs_err", max(
         float(np.abs(got[:, p].numpy()[inb] - wants[p][inb]).max())
-        for p in range(5)))
-    for p in range(5):
+        for p in range(P)))
+    for p in range(P):
         want = wants[p]
         np.testing.assert_allclose(got[:, p].numpy()[inb], want[inb],
                                    atol=1e-5)
@@ -163,16 +197,25 @@ def solve_cases():
         jM = tuple(jnp.asarray(m) for m in M)
         pal = box_blur_solve_pallas(jM, win)  # interpret
         xla = jfb.solve_flow(jM, win)
-        cases[win] = (M, [np.asarray(x) for x in pal],
+        cases[win] = (M, win, [np.asarray(x) for x in pal],
                       [np.asarray(x) for x in xla])
+    # odd shapes and every winsize class: the XLA function only, the Pallas
+    # kernel needs a vertical halo of at most 8 rows and TPU-sized planes
+    solve = jax.jit(jfb.solve_flow, static_argnums=1)
+    for key, (shape, win) in ODD_SOLVE.items():
+        M = [rng.normal(0, 2, shape).astype(np.float32) for _ in range(5)]
+        xla = solve(tuple(jnp.asarray(m) for m in M), win)
+        cases[key] = (M, win, None, [np.asarray(x) for x in xla])
     return cases
 
 
-@pytest.mark.parametrize("win", [15, 7])
-@pytest.mark.parametrize("oracle", ["pallas", "xla"])
-def test_blur_solve_twin_matches_jax(solve_cases, win, oracle,
+@pytest.mark.parametrize("oracle,case", [
+    pytest.param(o, w, id=f"{o}-{w}") for w in (15, 7)
+    for o in ("pallas", "xla")] + [
+    pytest.param("xla", key, id=f"xla-{key}") for key in ODD_SOLVE])
+def test_blur_solve_twin_matches_jax(solve_cases, case, oracle,
                                      record_property):
-    M, pal, xla = solve_cases[win]
+    M, win, pal, xla = solve_cases[case]
     want = pal if oracle == "pallas" else xla
     gu, gv = flow_step.box_blur_solve([torch.from_numpy(m) for m in M], win)
     record_property("max_abs_err", max(
@@ -279,27 +322,39 @@ def test_poly_exp_kernel_matches_twin(cuda_device, size):
     assert float((got - want).abs().max()) <= 1e-4
 
 
+# K2 (P=5) and K5 (P=3) equal their twin bitwise, in both the staged and
+# the direct-gather branch (at 64x96 and 100x140 the sigma-60 px fields
+# overflow the staging buffer on most tiles)
 @pytest.mark.cuda
-@pytest.mark.parametrize("scale", [0.5, 5.0, 60.0])
-def test_warp_kernel_matches_twin(cuda_device, scale):
+@pytest.mark.parametrize("shape,P,scale", [
+    pytest.param((3, 64, 96), 5, s, id=f"{s}") for s in (0.5, 5.0, 60.0)] + [
+    pytest.param(shape, P, amp, id=f"{shape[1]}x{shape[2]}-p{P}-{amp:g}")
+    for shape in ((3, 45, 77), (3, 1, 1), (3, 40, 5), (2, 100, 140))
+    for P in (5, 3) for amp in (1.0, 60.0)])
+def test_warp_kernel_matches_twin(cuda_device, shape, P, scale):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    R = torch.randn((3, 5, 64, 96), generator=g, device=cuda_device)
-    u = torch.randn((3, 64, 96), generator=g, device=cuda_device) * scale
-    v = torch.randn((3, 64, 96), generator=g, device=cuda_device) * scale
-    got = warp.warp_bilinear(R, u, v)
+    B, H, W = shape
+    R = torch.randn((B, P, H, W), generator=g, device=cuda_device)
+    u = torch.randn(shape, generator=g, device=cuda_device) * scale
+    v = torch.randn(shape, generator=g, device=cuda_device) * scale
+    got = (warp.warp_bilinear(R, u, v) if P == 5
+           else warp.warp_planes(R.unbind(1), u, v))
     want = tfb.warp_bilinear(R, u, v)
-    inb = tfb.warp_inbounds(u, v)[:, None].expand_as(got)
     torch.cuda.synchronize()
-    assert float((got - want)[inb].abs().max()) <= 1e-5
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("win", [15, 7])
-def test_blur_solve_kernel_matches_twin(cuda_device, win):
+@pytest.mark.parametrize("shape,win", [
+    pytest.param((2, 64, 128), w, id=f"{w}") for w in (15, 7)] + [
+    pytest.param(shape, w, id=f"{shape[1]}x{shape[2]}-w{w}")
+    for shape in ((3, 45, 77), (3, 1, 1), (3, 40, 5), (2, 100, 140))
+    for w in (1, 3, 15, 31)])
+def test_blur_solve_kernel_matches_twin(cuda_device, shape, win):
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    M = [torch.randn((2, 64, 128), generator=g, device=cuda_device) * 2
+    M = [torch.randn(shape, generator=g, device=cuda_device) * 2
          for _ in range(5)]
     gu, gv = flow_step.box_blur_solve(M, win)
     wu, wv = tfb.solve_flow(M, win)
-    torch.testing.assert_close(gu, wu, rtol=2e-2, atol=1e-3)
-    torch.testing.assert_close(gv, wv, rtol=2e-2, atol=1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(gu, wu) and torch.equal(gv, wv)
