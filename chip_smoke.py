@@ -10,34 +10,40 @@ when any phase fails. Phases, in order:
 1. the card's name and power limit (nvidia-smi);
 2. build: the port's CUDA kernels are compiled from ``csrc/`` (nvcc);
 3. kernels: each kernel's wrapper against its plain PyTorch twin on the
-   card, at B=252, with the stated tolerance (K2, K3 and K5 bitwise): K1-K3
-   at every Farnebäck pyramid level of a 256x256 frame, K2 on a random
-   (sigma 5 px) and on a smooth displacement field, K4 and K5 at the DIS
-   level shapes of the three presets. Per kernel and shape the kernel's
-   time, the plain twin's time and, where one PyTorch call computes the
-   same function, that call's time (CUDA events around one call, median of
-   ``REPS``: the host's cost of issuing the call included), beside the
-   bound: the larger of its bytes at 3.35 TB/s and its float32 operations
-   at 67 TFLOP/s (the H100 SXM data-sheet peaks). For K2, K3 and K5 also
-   the device time of the kernel and of the library call (a CUDA graph of
-   ``REPS`` calls), and the host's cost of one wrapper call. The JSON line
-   sums each kernel over the shapes its main path runs (all four levels
-   for K1-K3, K2 on the random field; the ``fast`` preset's two levels for
-   K4 and K5); K2's smooth-field sums are printed on a line of their own;
+   card, at B=252, bitwise (``torch.equal``): K1 (``poly_n`` 5 and 7),
+   K2 and K3 at every Farnebäck pyramid level of a 256x256 frame, K2 on a
+   random (sigma 5 px) and on a smooth displacement field, K4 in both
+   forms (the dense ``sample_abs`` on random coordinates, the patch
+   sampler ``sample_patches`` on the patch grids of the DIS presets, with
+   offsets of a few px and some far out of range) and K5 at the DIS level
+   shapes of the three presets. Per kernel and shape: the kernel's time,
+   the plain twin's time and, where one PyTorch call computes the same
+   function, that call's time (CUDA events around one call, median of
+   ``REPS``: the host's cost of issuing the call included); the device
+   time of the kernel and of the library call (a CUDA graph of ``REPS``
+   calls); beside the bound: the larger of its bytes at 3.35 TB/s and its
+   float32 operations at 33.5e12 per second (see ``F32_OPS_PER_S``). The
+   host's cost of one call of every wrapper (and of ``F.grid_sample``) at
+   32 px is printed on one line. The JSON line sums each kernel over the
+   shapes its main path runs (all four levels for K1-K3, K2 on the random
+   field; the ``fast`` preset's two levels for K4 and K5); K2's
+   smooth-field sums are printed on a line of their own;
 3b. edge shapes: K3 at odd shapes and every winsize class, K2 and K5 at
-   the same shapes on a tiny and a huge field, bitwise against the twins;
+   the same shapes on a tiny and a huge field, K1 at the same shapes for
+   every ``poly_n`` 1-8, and both forms of K4 at odd source sizes (and
+   one too large to stage) for the patch strides of all three DIS presets
+   and one other patch size, bitwise against the twins;
 4. Farnebäck main path: a synthetic clip of ``FRAMES`` 256x256 frames (a
    smooth texture zoomed about the centre with scale
    1 + 0.06 sin(2 pi t / 30)) through the port's entry point
    ``process_video`` with default Params, twice (a cold and a warm run,
    each timed); checks on each run the funscript, the
    keyframe period and that every dispatched window launched each kernel
-   its expected number of times (K1-K3 8 / 12 / 12, K4 and K5 none);
+   its expected number of times (``EXPECTED_PER_WINDOW``);
 5. Farnebäck kernels vs plain end to end: the first two full windows of the
    clip through the flow program with ``kernels="auto"`` and ``"plain"``;
 6. DIS main path: the same clip through ``process_video`` with
-   ``backend="DIS"`` (preset fast); the same checks, with launches of
-   K4 34 and K5 2 per window and K1-K3 none;
+   ``backend="DIS"`` (preset fast); the same checks;
 7. DIS kernels vs plain end to end, as in 5;
 8. device signal chain: a one-hour signal (108,000 samples at 30 fps)
    through ``compute_actions`` with ``signal_backend="auto"`` on the card,
@@ -65,19 +71,28 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, float32 outside tensor cores
+# The data sheet's 67 TFLOP/s float32 counts a fused multiply-add as two
+# operations. The kernels are built with --fmad=false, as their twins'
+# roundings require, so every multiply and every add is an instruction of
+# its own: 33.5e12 of them per second.
+F32_OPS_PER_S = 33.5e12
 B_MAIN = 252               # pairs per full window: pair_batch 240 + 2 x 6 halo
 LEVELS = (256, 128, 64, 32)
+POLY = ((5, 1.2), (7, 1.5))  # (poly_n, poly_sigma) checked; the first is timed
 # launches per dispatched window of each main path; every other kernel 0
 EXPECTED_PER_WINDOW = {
     "farneback": {"poly_exp": 8, "warp_bilinear": 12, "box_blur_solve": 12},
     # 17 = 16 descent steps + 1 densification sample, at 2 levels; one
     # refinement warp per level
-    "dis": {"sample_abs": 34, "warp_planes": 2},
+    "dis": {"sample_abs": 0, "sample_patches": 34, "warp_planes": 2},
 }
 # DIS level shapes on 256x256 frames: source side h -> dense patch grid Ho
 K4_SHAPES = {"fast": ((32, 56), (64, 120)),
              "medium": ((32, 72), (64, 152), (128, 328))}
+# the same levels as patch grids: (source side h, patch stride), patch 8
+PATCH = 8
+K4P_GRIDS = {"fast": ((32, 4), (64, 4)),
+             "medium": ((32, 3), (64, 3), (128, 3))}
 K5_SIZES = {"fast": (32, 64), "medium": (32, 64, 128)}
 SIGNAL_SAMPLES = 108_000  # one hour at 30 fps
 FRAMES = 1800             # 60 s at 30 fps
@@ -88,28 +103,35 @@ KERNEL_META = {
     "poly_exp": {
         "source": "funscript_flow_tpu_torch/csrc/polyexp.cu",
         "replaces": "funscript_flow_tpu/ops/pallas/polyexp.py:95",
-        "bytes_px": 4 + 5 * 4, "flops_px": 198, "tol": "atol 1e-4",
+        "bytes_px": 4 + 5 * 4, "flops_px": 198,
     },
     "warp_bilinear": {
         "source": "funscript_flow_tpu_torch/csrc/warp.cu",
         "replaces": "funscript_flow_tpu/ops/pallas/warp.py:185",
-        "bytes_px": 5 * 4 + 2 * 4 + 5 * 4, "flops_px": 53, "tol": "bitwise",
+        "bytes_px": 5 * 4 + 2 * 4 + 5 * 4, "flops_px": 53,
     },
     "box_blur_solve": {
         "source": "funscript_flow_tpu_torch/csrc/flow_step.cu",
         "replaces": "funscript_flow_tpu/ops/pallas/flow_step.py:71",
-        "bytes_px": 5 * 4 + 2 * 4, "flops_px": 158, "tol": "bitwise",
+        "bytes_px": 5 * 4 + 2 * 4, "flops_px": 158,
     },
     # per output pixel; the source plane's bytes are added per call
     "sample_abs": {
         "source": "funscript_flow_tpu_torch/csrc/warp.cu",
         "replaces": "funscript_flow_tpu/ops/pallas/warp.py:252",
-        "bytes_px": 2 * 4 + 4, "flops_px": 17, "tol": "atol 2e-5",
+        "bytes_px": 2 * 4 + 4, "flops_px": 17,
+    },
+    # per output pixel; 8 B of offsets per patch and the source plane are
+    # added per call
+    "sample_patches": {
+        "source": "funscript_flow_tpu_torch/csrc/warp.cu",
+        "replaces": "funscript_flow_tpu/ops/pallas/warp.py:252",
+        "bytes_px": 4, "flops_px": 17,
     },
     "warp_planes": {
         "source": "funscript_flow_tpu_torch/csrc/warp.cu",
         "replaces": "funscript_flow_tpu/ops/pallas/warp.py:226",
-        "bytes_px": 2 * 4 + 3 * 4 + 3 * 4, "flops_px": 35, "tol": "bitwise",
+        "bytes_px": 2 * 4 + 3 * 4 + 3 * 4, "flops_px": 35,
     },
 }
 # Odd shapes (B, H, W) for the edge phase: H and W that are not multiples of
@@ -121,6 +143,11 @@ EDGE_WINSIZES = (1, 3, 15, 31)
 # at +-60 px it overflows it on all tiles of the 100x140 shape but a corner
 # one, which take the direct gather
 EDGE_AMPLITUDES = (1.0, 60.0)
+# K4's edge sources (h, w): odd, and too large for the staging buffer
+EDGE_K4 = ((40, 48), (45, 77), (200, 232))
+# (patch size, stride): ultrafast and fast (8, 4), medium (8, 3), and a
+# patch size that takes the kernel's run-time-size instance
+EDGE_PATCHES = ((8, 4), (8, 3), (5, 2))
 
 
 class Failure(Exception):
@@ -196,36 +223,47 @@ def host_us(torch, fn, n: int = 200) -> float:
 def bound_ms(name: str, n_px: int, extra_bytes: int = 0):
     m = KERNEL_META[name]
     t_bytes = (n_px * m["bytes_px"] + extra_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = n_px * m["flops_px"] / F32_FLOPS_PER_S * 1e3
+    t_ops = n_px * m["flops_px"] / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _row(out, name, shape, err, t_k, t_p, t_l, n_px, extra_bytes=0,
-         summed=True, dev=None):
+def max_err(got, want) -> float:
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def _row(out, name, shape, err, t_k, t_p, t_l, dev, n_px, extra_bytes=0,
+         summed=True):
     """Print one kernel/shape line; add it to ``out[name]`` if ``summed``.
-    ``dev``: (kernel, library) :func:`device_ms`, where measured."""
+    ``dev``: (kernel, library) :func:`device_ms`, the library's None where
+    there is no library call."""
     b_ms, _ = bound_ms(name, n_px, extra_bytes)
     lib = "null" if t_l is None else f"{t_l:.4f}"
-    dev_s = "" if dev is None else (
-        f" device_ms={dev[0]:.4f} library_device_ms="
-        + ("null" if dev[1] is None else f"{dev[1]:.4f}"))
+    lib_dev = "null" if dev[1] is None else f"{dev[1]:.4f}"
     print(f"kernel {name} B={B_MAIN} {shape}: max_abs_err={err:.3g} "
-          f"(tol {KERNEL_META[name]['tol']}) ms={t_k:.4f} "
-          f"plain_ms={t_p:.4f} library_ms={lib} bound_ms={b_ms:.4f}{dev_s}")
+          f"(tol bitwise) ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={lib} "
+          f"bound_ms={b_ms:.4f} device_ms={dev[0]:.4f} "
+          f"library_device_ms={lib_dev}")
     o = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                               "bound_ms": 0.0, "library_ms": 0.0, "px": 0,
                               "extra_bytes": 0, "device": None})
     o["max_abs_err"] = max(o["max_abs_err"], err)
-    if summed and dev is not None:
+    if summed:
         o["device"] = dev if o["device"] is None else tuple(
             None if a is None else a + b for a, b in zip(o["device"], dev))
-    if summed:
         o["ms"] += t_k
         o["plain_ms"] += t_p
         o["bound_ms"] += b_ms
         o["library_ms"] = None if t_l is None else o["library_ms"] + t_l
         o["px"] += n_px
         o["extra_bytes"] += extra_bytes
+
+
+def _add_preset(per_preset, name, presets, t_k, t_p, t_l, b, dev):
+    """Add one shape's times to the sums of each preset that runs it."""
+    for preset in presets:
+        acc = per_preset.setdefault((name, preset), [0.0] * 6)
+        for i, t in enumerate((t_k, t_p, t_l, b) + tuple(dev)):
+            acc[i] += t
 
 
 def smooth_field(torch, gen, B: int, S: int, dev):
@@ -253,47 +291,99 @@ def grid_of(torch, u, v):
                         (ys + v) / (H - 1) * 2 - 1], dim=-1)
 
 
-def kernel_phase(torch, dev) -> dict:
-    """Each kernel against its plain twin at every level size; returns
-    per-kernel sums over the four levels."""
+def patch_offsets(torch, gen, B: int, ny: int, nx: int, h: int, w: int, dev):
+    """Patch offsets (pu, pv) [B, ny, nx] like a real window's (sigma 2 px),
+    one in 16 replaced by one up to twice the source size away, so that
+    both corner clamps are hit."""
+    near = torch.randn((2, B, ny, nx), generator=gen, device=dev) * 2
+    far = torch.rand((2, B, ny, nx), generator=gen, device=dev) * 2 - 1
+    far = far * torch.tensor([2.0 * w, 2.0 * h], device=dev)[:, None, None,
+                                                              None]
+    pick = torch.rand((2, B, ny, nx), generator=gen, device=dev) < 1 / 16
+    pu, pv = torch.where(pick, far, near)
+    return pu.contiguous(), pv.contiguous()
+
+
+def patch_grid(torch, dis, h, w, pu, pv, ps, stride):
+    """``F.grid_sample``'s grid (align_corners=True) of the dense
+    [B, ny*ps, nx*ps] coordinates that the patch sampler's twin forms."""
+    grid = []
+
+    def keep(img, fy, fx):
+        grid.append(torch.stack([fx / (w - 1) * 2 - 1,
+                                 fy / (h - 1) * 2 - 1], dim=-1))
+        return fy
+
+    ny, nx = pu.shape[1:]
+    py, px = dis._patch_origins(ny, nx, stride, pu.device)
+    dis._sample_patches_dense(torch.empty((pu.shape[0], h, w),
+                                          device=pu.device),
+                              py, px, pv, pu, ps, keep)
+    return grid[0]
+
+
+# ---------------------------------------------------------- kernel phase
+#
+# One section per wrapper entry point: section(torch, dev, gen, out, host,
+# per_preset) checks the kernel against its twin at each shape, prints a
+# row per shape (summed into ``out`` for the JSON line where the main path
+# runs that shape) and records the wrapper's host cost at 32 px in
+# ``host``.
+
+def k1_section(torch, dev, gen, out, host, per_preset) -> None:
     import torch.nn.functional as F
 
     from funscript_flow_tpu_torch.ops import farneback as fb
-    from funscript_flow_tpu_torch.ops.cuda import flow_step, polyexp, warp
+    from funscript_flow_tpu_torch.ops.cuda import polyexp
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    g, xg, xxg, (ig11, ig03, ig33, ig55) = fb._poly_exp_tables(5, 1.2)
-    # one 11x11 filter per output plane, for the conv2d yardstick
+    n0, s0 = POLY[0]
+    g, xg, xxg, (ig11, ig03, ig33, ig55) = fb._poly_exp_tables(n0, s0)
+    # one filter per output plane, for the conv2d yardstick
     bank = np.stack([np.outer(g, xg) * ig11, np.outer(xg, g) * ig11,
                      np.outer(g, g) * ig03 + np.outer(g, xxg) * ig33,
                      np.outer(g, g) * ig03 + np.outer(xxg, g) * ig33,
                      np.outer(xg, xg) * ig55])
     bank = torch.from_numpy(bank.astype(np.float32))[:, None].to(dev)
+    for S in LEVELS:
+        img = torch.rand((B_MAIN, S, S), generator=gen, device=dev) * 255
+        err = 0.0
+        for n, sigma in POLY:
+            got = polyexp.poly_exp(img, n, sigma)
+            want = torch.stack(fb.poly_exp(img, n, sigma), 1)
+            torch.cuda.synchronize()
+            err = max(err, max_err(got, want))
+            check(torch.equal(got, want),
+                  f"poly_exp {S}px poly_n {n}: max abs err {max_err(got, want)}")
+            del got, want
 
-    out = {}
-    # K2 on the smooth field: ms, plain, library, bound, device, library
-    # device
+        def k1():
+            return polyexp.poly_exp(img, n0, s0)
+
+        def lib1():
+            return F.conv2d(F.pad(img[:, None], (n0,) * 4, mode="replicate"),
+                            bank)
+        t = (time_ms(torch, k1), time_ms(torch, lambda: fb.poly_exp(
+            img, n0, s0)), time_ms(torch, lib1))
+        _row(out, "poly_exp", f"{S}x{S} poly_n={n0}", err, *t,
+             (device_ms(torch, k1), device_ms(torch, lib1)), B_MAIN * S * S)
+        if S == 32:
+            host["poly_exp"] = host_us(torch, k1)
+        del img
+        torch.cuda.empty_cache()
+
+
+def k2_section(torch, dev, gen, out, host, per_preset) -> None:
+    """K2 on two fields: random displacements (sigma 5 px, every level; the
+    JSON line's sums) and the smooth field of a real window (printed apart,
+    summed on a line of its own)."""
+    import torch.nn.functional as F
+
+    from funscript_flow_tpu_torch.ops import farneback as fb
+    from funscript_flow_tpu_torch.ops.cuda import warp
+
     smooth_sums = [0.0] * 6
     for S in LEVELS:
         B = B_MAIN
-        n_px = B * S * S
-        # --- K1 poly_exp
-        img = torch.rand((B, S, S), generator=gen, device=dev) * 255
-        got = polyexp.poly_exp(img, 5, 1.2)
-        want = torch.stack(fb.poly_exp(img, 5, 1.2), 1)
-        torch.cuda.synchronize()
-        err1 = float((got - want).abs().max())
-        check(err1 <= 1e-4, f"poly_exp {S}px: max abs err {err1}")
-        t_k = time_ms(torch, lambda: polyexp.poly_exp(img, 5, 1.2))
-        t_p = time_ms(torch, lambda: fb.poly_exp(img, 5, 1.2))
-        t_l = time_ms(torch, lambda: F.conv2d(
-            F.pad(img[:, None], (5, 5, 5, 5), mode="replicate"), bank))
-        del got, want
-        rows = [("poly_exp", err1, t_k, t_p, t_l, None)]
-
-        # --- K2 warp_bilinear on two fields: random displacements (sigma
-        # 5 px, every level; the JSON line's sums) and the smooth field of
-        # a real window (printed apart, summed on a line of its own)
         R = torch.randn((B, 5, S, S), generator=gen, device=dev)
         random_uv = (torch.randn((B, S, S), generator=gen, device=dev) * 5,
                      torch.randn((B, S, S), generator=gen, device=dev) * 5)
@@ -302,9 +392,10 @@ def kernel_phase(torch, dev) -> dict:
             got = warp.warp_bilinear(R, u, v)
             want = fb.warp_bilinear(R, u, v)
             torch.cuda.synchronize()
-            err2 = float((got - want).abs().max())
+            err = max_err(got, want)
             check(torch.equal(got, want),
-                  f"warp_bilinear {S}px field={field}: max abs err {err2}")
+                  f"warp_bilinear {S}px field={field}: max abs err {err}")
+            del got, want
             grid = grid_of(torch, u, v)
 
             def k2():
@@ -313,108 +404,154 @@ def kernel_phase(torch, dev) -> dict:
             def lib2():
                 return F.grid_sample(R, grid, mode="bilinear",
                                      padding_mode="border", align_corners=True)
-            t_k = time_ms(torch, k2)
-            t_p = time_ms(torch, lambda: fb.warp_bilinear(R, u, v))
-            t_l = time_ms(torch, lib2)
+            t = (time_ms(torch, k2),
+                 time_ms(torch, lambda: fb.warp_bilinear(R, u, v)),
+                 time_ms(torch, lib2))
             dev2 = (device_ms(torch, k2), device_ms(torch, lib2))
-            del got, want
-            if field == "random":
-                rows.append(("warp_bilinear", err2, t_k, t_p, t_l, dev2))
-            else:
-                smooth = (err2, t_k, t_p, t_l, dev2)
-            if S == LEVELS[-1] and field == "random":
-                t_h = (host_us(torch, k2), host_us(torch, lib2),
-                       host_us(torch, lambda: flow_step.box_blur_solve(
-                           (u,) * 5, 15)))
-                print("host cost per call at {0}x{0}: warp_bilinear {1:.1f} "
-                      "us, F.grid_sample {2:.1f} us, box_blur_solve {3:.1f} "
-                      "us".format(S, *t_h))
+            _row(out, "warp_bilinear", f"{S}x{S} field={field}", err, *t,
+                 dev2, B * S * S, summed=field == "random")
+            if field == "smooth":
+                for i, x in enumerate(t + (bound_ms("warp_bilinear",
+                                                    B * S * S)[0],) + dev2):
+                    smooth_sums[i] += x
+            if S == 32 and field == "random":
+                host["warp_bilinear"] = host_us(torch, k2)
+                host["F.grid_sample"] = host_us(torch, lib2)
             del grid
         del R, random_uv, u, v
-
-        # --- K3 box_blur_solve (random constraint planes, as in the tests)
-        M = tuple(torch.randn((B, S, S), generator=gen, device=dev) * 2
-                  for _ in range(5))
-        gu, gv = flow_step.box_blur_solve(M, 15)
-        wu, wv = fb.solve_flow(M, 15)
-        torch.cuda.synchronize()
-        err3 = max(float((gu - wu).abs().max()), float((gv - wv).abs().max()))
-        check(torch.equal(gu, wu) and torch.equal(gv, wv),
-              f"box_blur_solve {S}px: max abs err {err3}")
-        t_k = time_ms(torch, lambda: flow_step.box_blur_solve(M, 15))
-        t_p = time_ms(torch, lambda: fb.solve_flow(M, 15))
-        dev3 = (device_ms(torch, lambda: flow_step.box_blur_solve(M, 15)),
-                None)
-        del gu, gv, wu, wv, M
-        rows.append(("box_blur_solve", err3, t_k, t_p, None, dev3))
-
-        for name, err, t_k, t_p, t_l, dev_t in rows:
-            field = " field=random" if name == "warp_bilinear" else ""
-            _row(out, name, f"{S}x{S}{field}", err, t_k, t_p, t_l, n_px,
-                 dev=dev_t)
-        err2, t_k, t_p, t_l, dev2 = smooth
-        _row(out, "warp_bilinear", f"{S}x{S} field=smooth", err2, t_k, t_p,
-             t_l, n_px, summed=False, dev=dev2)
-        for i, t in enumerate((t_k, t_p, t_l,
-                               bound_ms("warp_bilinear", n_px)[0]) + dev2):
-            smooth_sums[i] += t
         torch.cuda.empty_cache()
     print("kernel warp_bilinear field=smooth, summed over the levels: "
           "ms={:.4f} plain_ms={:.4f} library_ms={:.4f} bound_ms={:.4f} "
           "device_ms={:.4f} library_device_ms={:.4f}".format(*smooth_sums))
-    out.update(dis_kernel_phase(torch, dev, gen))
-    for name, o in out.items():
-        o["bound_by"] = bound_ms(name, o["px"], o["extra_bytes"])[1]
-        if o["device"] is not None:
-            t_d, t_ld = o["device"]
-            print(f"kernel {name}, summed as in the JSON line: device_ms="
-                  f"{t_d:.4f} library_device_ms="
-                  + ("null" if t_ld is None else f"{t_ld:.4f}"))
-    return out
 
 
-def dis_kernel_phase(torch, dev, gen) -> dict:
-    """K4 and K5 against their plain twins at the DIS level shapes of the
-    three presets on 256x256 frames, B=252. Sums (for the JSON line) cover
-    the fast preset's shapes, the ones the DIS main path runs; each preset's
-    sums are printed."""
+def k3_section(torch, dev, gen, out, host, per_preset) -> None:
+    """K3 on random constraint planes, as in the tests."""
+    from funscript_flow_tpu_torch.ops import farneback as fb
+    from funscript_flow_tpu_torch.ops.cuda import flow_step
+
+    for S in LEVELS:
+        M = tuple(torch.randn((B_MAIN, S, S), generator=gen, device=dev) * 2
+                  for _ in range(5))
+        gu, gv = flow_step.box_blur_solve(M, 15)
+        wu, wv = fb.solve_flow(M, 15)
+        torch.cuda.synchronize()
+        err = max(max_err(gu, wu), max_err(gv, wv))
+        check(torch.equal(gu, wu) and torch.equal(gv, wv),
+              f"box_blur_solve {S}px: max abs err {err}")
+        del gu, gv, wu, wv
+
+        def k3():
+            return flow_step.box_blur_solve(M, 15)
+        t = (time_ms(torch, k3), time_ms(torch, lambda: fb.solve_flow(M, 15)),
+             None)
+        _row(out, "box_blur_solve", f"{S}x{S}", err, *t,
+             (device_ms(torch, k3), None), B_MAIN * S * S)
+        if S == 32:
+            host["box_blur_solve"] = host_us(torch, k3)
+        del M
+        torch.cuda.empty_cache()
+
+
+def k4_dense_section(torch, dev, gen, out, host, per_preset) -> None:
+    """K4's dense form on random coordinates at the DIS level shapes of the
+    three presets; sums over the fast preset's shapes."""
     import torch.nn.functional as F
 
     from funscript_flow_tpu_torch.models import dis
-    from funscript_flow_tpu_torch.ops import farneback as fb
     from funscript_flow_tpu_torch.ops.cuda import warp
 
     B = B_MAIN
-    out = {}
-    per_preset = {}
-    shapes = sorted({s for v in K4_SHAPES.values() for s in v})
-    for h, Ho in shapes:
+    for h, Ho in sorted({s for v in K4_SHAPES.values() for s in v}):
         img = torch.rand((B, h, h), generator=gen, device=dev) * 255
         fy = torch.rand((B, Ho, Ho), generator=gen, device=dev) * (h - 1)
         fx = torch.rand((B, Ho, Ho), generator=gen, device=dev) * (h - 1)
         got = warp.sample_abs(img, fy, fx)
         want = dis.bilinear_abs(img, fy, fx)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(err <= 2e-5, f"sample_abs {h}->{Ho}: max abs err {err}")
+        err = max_err(got, want)
+        check(torch.equal(got, want), f"sample_abs {h}->{Ho}: max abs err "
+                                      f"{err}")
         grid = torch.stack([fx / (h - 1) * 2 - 1, fy / (h - 1) * 2 - 1], -1)
-        t_k = time_ms(torch, lambda: warp.sample_abs(img, fy, fx))
-        t_p = time_ms(torch, lambda: dis.bilinear_abs(img, fy, fx))
-        t_l = time_ms(torch, lambda: F.grid_sample(
-            img[:, None], grid, mode="bilinear", padding_mode="border",
-            align_corners=True))
-        n_px, src = B * Ho * Ho, B * h * h * 4
-        in_fast = (h, Ho) in K4_SHAPES["fast"]
-        _row(out, "sample_abs", f"{h}x{h}->{Ho}x{Ho}", err, t_k, t_p, t_l,
-             n_px, src, summed=in_fast)
-        for preset, shp in K4_SHAPES.items():
-            if (h, Ho) in shp:
-                acc = per_preset.setdefault(("sample_abs", preset), [0.0] * 4)
-                for i, t in enumerate((t_k, t_p, t_l,
-                                       bound_ms("sample_abs", n_px, src)[0])):
-                    acc[i] += t
-        del img, fy, fx, got, want, grid
 
+        def k4():
+            return warp.sample_abs(img, fy, fx)
+
+        def lib4():
+            return F.grid_sample(img[:, None], grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+        t = (time_ms(torch, k4),
+             time_ms(torch, lambda: dis.bilinear_abs(img, fy, fx)),
+             time_ms(torch, lib4))
+        dev4 = (device_ms(torch, k4), device_ms(torch, lib4))
+        n_px, src = B * Ho * Ho, B * h * h * 4
+        _row(out, "sample_abs", f"{h}x{h}->{Ho}x{Ho}", err, *t, dev4, n_px,
+             src, summed=(h, Ho) in K4_SHAPES["fast"])
+        _add_preset(per_preset, "sample_abs",
+                    [p for p, s in K4_SHAPES.items() if (h, Ho) in s], *t,
+                    bound_ms("sample_abs", n_px, src)[0], dev4)
+        if (h, Ho) == K4_SHAPES["fast"][0]:
+            host["sample_abs"] = host_us(torch, k4)
+        del img, fy, fx, got, want, grid
+        torch.cuda.empty_cache()
+
+
+def k4_patch_section(torch, dev, gen, out, host, per_preset) -> None:
+    """K4's patch form at the DIS patch grids of the three presets, offsets
+    as ``patch_offsets``; library: ``F.grid_sample`` on the pre-built dense
+    coordinate grid. Sums over the fast preset's grids."""
+    import torch.nn.functional as F
+
+    from funscript_flow_tpu_torch.models import dis
+    from funscript_flow_tpu_torch.ops.cuda import warp
+
+    B, ps = B_MAIN, PATCH
+    for h, st in sorted({s for v in K4P_GRIDS.values() for s in v}):
+        ny = nx = (h - ps) // st + 1
+        img = torch.rand((B, h, h), generator=gen, device=dev) * 255
+        pu, pv = patch_offsets(torch, gen, B, ny, nx, h, h, dev)
+        got = warp.sample_patches(img, pu, pv, ps, st)
+        want = dis._sample_patches_plain(img, pu, pv, ps, st)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(torch.equal(got, want),
+              f"sample_patches {h}px stride {st}: max abs err {err}")
+        grid = patch_grid(torch, dis, h, h, pu, pv, ps, st)
+
+        def k4p():
+            return warp.sample_patches(img, pu, pv, ps, st)
+
+        def lib4p():
+            return F.grid_sample(img[:, None], grid, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+        t = (time_ms(torch, k4p),
+             time_ms(torch, lambda: dis._sample_patches_plain(img, pu, pv,
+                                                              ps, st)),
+             time_ms(torch, lib4p))
+        dev4 = (device_ms(torch, k4p), device_ms(torch, lib4p))
+        n_px = B * ny * nx * ps * ps
+        extra = B * ny * nx * 8 + B * h * h * 4
+        _row(out, "sample_patches", f"{h}x{h} stride {st} ({ny}x{nx} "
+             f"patches)", err, *t, dev4, n_px, extra,
+             summed=(h, st) in K4P_GRIDS["fast"])
+        _add_preset(per_preset, "sample_patches",
+                    [p for p, s in K4P_GRIDS.items() if (h, st) in s], *t,
+                    bound_ms("sample_patches", n_px, extra)[0], dev4)
+        if (h, st) == K4P_GRIDS["fast"][0]:
+            host["sample_patches"] = host_us(torch, k4p)
+        del img, pu, pv, got, want, grid
+        torch.cuda.empty_cache()
+
+
+def k5_section(torch, dev, gen, out, host, per_preset) -> None:
+    """K5 at the DIS level sizes of the three presets, flow pre-clamped as
+    in ``dis.variational_refinement``; sums over the fast preset's sizes."""
+    import torch.nn.functional as F
+
+    from funscript_flow_tpu_torch.ops import farneback as fb
+    from funscript_flow_tpu_torch.ops.cuda import warp
+
+    B = B_MAIN
     for S in sorted({s for v in K5_SIZES.values() for s in v}):
         planes = [torch.randn((B, S, S), generator=gen, device=dev) * 40
                   for _ in range(3)]
@@ -422,13 +559,12 @@ def dis_kernel_phase(torch, dev, gen) -> dict:
         xs = torch.arange(S, device=dev, dtype=torch.float32)[None, :]
         u = torch.randn((B, S, S), generator=gen, device=dev) * 2
         v = torch.randn((B, S, S), generator=gen, device=dev) * 2
-        # pre-clamped as in dis.variational_refinement
         u = (torch.clamp(xs + u, 0.0, S - 1.0) - xs).contiguous()
         v = (torch.clamp(ys + v, 0.0, S - 1.0) - ys).contiguous()
         got = warp.warp_planes(planes, u, v)
         want = fb.warp_bilinear(torch.stack(planes, 1), u, v)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
+        err = max_err(got, want)
         check(torch.equal(got, want), f"warp_planes {S}px: max abs err {err}")
         stacked = torch.stack(planes, 1)
         grid = grid_of(torch, u, v)
@@ -439,65 +575,118 @@ def dis_kernel_phase(torch, dev, gen) -> dict:
         def lib5():
             return F.grid_sample(stacked, grid, mode="bilinear",
                                  padding_mode="border", align_corners=True)
-        t_k = time_ms(torch, k5)
-        t_p = time_ms(torch, lambda: fb.warp_bilinear(
-            torch.stack(planes, 1), u, v))
-        t_l = time_ms(torch, lib5)
+        t = (time_ms(torch, k5), time_ms(torch, lambda: fb.warp_bilinear(
+            torch.stack(planes, 1), u, v)), time_ms(torch, lib5))
+        dev5 = (device_ms(torch, k5), device_ms(torch, lib5))
         n_px = B * S * S
-        _row(out, "warp_planes", f"{S}x{S}", err, t_k, t_p, t_l, n_px,
-             summed=S in K5_SIZES["fast"],
-             dev=(device_ms(torch, k5), device_ms(torch, lib5)))
-        for preset, sizes in K5_SIZES.items():
-            if S in sizes:
-                acc = per_preset.setdefault(("warp_planes", preset), [0.0] * 4)
-                for i, t in enumerate((t_k, t_p, t_l,
-                                       bound_ms("warp_planes", n_px)[0])):
-                    acc[i] += t
+        _row(out, "warp_planes", f"{S}x{S}", err, *t, dev5, n_px,
+             summed=S in K5_SIZES["fast"])
+        _add_preset(per_preset, "warp_planes",
+                    [p for p, s in K5_SIZES.items() if S in s], *t,
+                    bound_ms("warp_planes", n_px)[0], dev5)
+        if S == 32:
+            host["warp_planes"] = host_us(torch, k5)
         del planes, u, v, got, want, stacked, grid
         torch.cuda.empty_cache()
-    for (name, preset), (t_k, t_p, t_l, b) in sorted(per_preset.items()):
+
+
+SECTIONS = {"poly_exp": k1_section, "warp_bilinear": k2_section,
+            "box_blur_solve": k3_section, "sample_abs": k4_dense_section,
+            "sample_patches": k4_patch_section, "warp_planes": k5_section}
+
+
+def kernel_phase(torch, dev) -> dict:
+    """Every kernel's section; returns per-kernel sums for the JSON line."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out, host, per_preset = {}, {}, {}
+    for section in SECTIONS.values():
+        section(torch, dev, gen, out, host, per_preset)
+    for (name, preset), sums in sorted(per_preset.items()):
         print(f"kernel {name} preset {preset}, summed over its levels: "
-              f"ms={t_k:.4f} plain_ms={t_p:.4f} library_ms={t_l:.4f} "
-              f"bound_ms={b:.4f}")
+              "ms={:.4f} plain_ms={:.4f} library_ms={:.4f} bound_ms={:.4f} "
+              "device_ms={:.4f} library_device_ms={:.4f}".format(*sums))
+    for name, o in out.items():
+        o["bound_by"] = bound_ms(name, o["px"], o["extra_bytes"])[1]
+        t_d, t_ld = o["device"]
+        print(f"kernel {name}, summed as in the JSON line: ms={o['ms']:.4f} "
+              f"device_ms={t_d:.4f} library_device_ms="
+              + ("null" if t_ld is None else f"{t_ld:.4f}")
+              + f" bound_ms={o['bound_ms']:.4f}")
+    print("host cost per call at 32 px: " + ", ".join(
+        f"{k} {v:.1f} us" for k, v in host.items()))
     return out
 
 
 def edge_phase(torch, dev) -> None:
-    """K3 at every ``EDGE_SHAPES`` shape and ``EDGE_WINSIZES`` window, and
-    K2 (P=5) and K5 (P=3) at every shape and ``EDGE_AMPLITUDES`` field, each
-    held bitwise against its plain twin."""
+    """K3 at every ``EDGE_SHAPES`` shape and ``EDGE_WINSIZES`` window, K2
+    (P=5) and K5 (P=3) at every shape and ``EDGE_AMPLITUDES`` field, K1 at
+    every shape for ``poly_n`` 1-8, and both forms of K4 at the
+    ``EDGE_K4`` sources for every ``EDGE_PATCHES`` patch size and stride,
+    each held bitwise against its plain twin."""
+    from funscript_flow_tpu_torch.models import dis
     from funscript_flow_tpu_torch.ops import farneback as fb
-    from funscript_flow_tpu_torch.ops.cuda import flow_step, warp
+    from funscript_flow_tpu_torch.ops.cuda import flow_step, polyexp, warp
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    n = 0
+    counts = dict.fromkeys(("box_blur_solve", "warp_bilinear", "warp_planes",
+                            "poly_exp", "sample_abs", "sample_patches"), 0)
     for B, H, W in EDGE_SHAPES:
         M = tuple(torch.randn((B, H, W), generator=gen, device=dev) * 2
                   for _ in range(5))
         for win in EDGE_WINSIZES:
             got = flow_step.box_blur_solve(M, win)
             want = fb.solve_flow(M, win)
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            err = max(max_err(a, b) for a, b in zip(got, want))
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
                   f"box_blur_solve B={B} {H}x{W} winsize {win}: max abs "
                   f"err {err}")
-            n += 1
+            counts["box_blur_solve"] += 1
         for P, name in ((5, "warp_bilinear"), (3, "warp_planes")):
             R = torch.randn((B, P, H, W), generator=gen, device=dev)
             for amp in EDGE_AMPLITUDES:
                 u, v = ((torch.rand((B, H, W), generator=gen, device=dev)
                          * 2 - 1) * amp for _ in range(2))
-                got = (warp.warp_bilinear(R, u, v) if P == 5
-                       else warp.warp_planes(R.unbind(1), u, v))
+                got = (warp.warp_bilinear(R, u, v) if P == 5 else
+                       warp.warp_planes([p.contiguous() for p in R.unbind(1)],
+                                        u, v))
                 want = fb.warp_bilinear(R, u, v)
-                err = float((got - want).abs().max())
                 check(torch.equal(got, want),
-                      f"{name} B={B} {H}x{W} +-{amp} px: max abs err {err}")
-                n += 1
-    print(f"edge shapes: {n} cases of box_blur_solve (winsize "
-          f"{EDGE_WINSIZES}), warp_bilinear and warp_planes (+-"
-          f"{EDGE_AMPLITUDES} px) at B,H,W {EDGE_SHAPES}: all bitwise equal "
-          f"to their twins")
+                      f"{name} B={B} {H}x{W} +-{amp} px: max abs err "
+                      f"{max_err(got, want)}")
+                counts[name] += 1
+        img = torch.rand((B, H, W), generator=gen, device=dev) * 255
+        for n in range(1, polyexp.MAX_POLY_N + 1):
+            sigma = 0.3 * n + 0.3
+            got = polyexp.poly_exp(img, n, sigma)
+            want = torch.stack(fb.poly_exp(img, n, sigma), 1)
+            check(torch.equal(got, want),
+                  f"poly_exp B={B} {H}x{W} poly_n {n}: max abs err "
+                  f"{max_err(got, want)}")
+            counts["poly_exp"] += 1
+    for h, w in EDGE_K4:
+        B = 3
+        img = torch.rand((B, h, w), generator=gen, device=dev) * 255
+        fy = torch.rand((B, h + 3, w - 5), generator=gen, device=dev) * (h - 1)
+        fx = torch.rand((B, h + 3, w - 5), generator=gen, device=dev) * (w - 1)
+        got = warp.sample_abs(img, fy, fx)
+        want = dis.bilinear_abs(img, fy, fx)
+        check(torch.equal(got, want), f"sample_abs {h}x{w}: max abs err "
+                                      f"{max_err(got, want)}")
+        counts["sample_abs"] += 1
+        for ps, st in EDGE_PATCHES:
+            ny, nx = (h - ps) // st + 1, (w - ps) // st + 1
+            pu, pv = patch_offsets(torch, gen, B, ny, nx, h, w, dev)
+            got = warp.sample_patches(img, pu, pv, ps, st)
+            want = dis._sample_patches_plain(img, pu, pv, ps, st)
+            check(torch.equal(got, want),
+                  f"sample_patches {h}x{w} patch {ps} stride {st}: max abs "
+                  f"err {max_err(got, want)}")
+            counts["sample_patches"] += 1
+    torch.cuda.synchronize()
+    print(f"edge shapes: {sum(counts.values())} cases ({counts}) at B,H,W "
+          f"{EDGE_SHAPES} (winsize {EDGE_WINSIZES}, +-{EDGE_AMPLITUDES} px "
+          f"fields, poly_n 1-8) and K4 sources {EDGE_K4} (patch, stride "
+          f"{EDGE_PATCHES}): all bitwise equal to their twins")
 
 
 def make_clip(torch, dev, n: int = FRAMES, seed: int = SEED) -> list:
@@ -700,8 +889,11 @@ def signal_chain_phase(torch, dev) -> None:
           "device signal chain: implausible actions")
 
 
+# the hand kernels' symbols, as the profiler names them: K1, K2/K5, K3,
+# K4's patch form, K4's dense form
 HAND_KERNELS = ("poly_exp_kernel", "warp_bilinear_kernel",
-                "box_blur_solve_kernel", "sample_abs_kernel")
+                "box_blur_solve_kernel", "sample_kernel<true",
+                "sample_kernel<false")
 
 
 def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
@@ -760,6 +952,22 @@ def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
               f"{key[:90]}")
 
 
+def print_build(info: dict) -> None:
+    """The build's time and ptxas's resource lines, one per kernel
+    instance (its template arguments decoded from the mangled name)."""
+    print(f"build: {info['seconds']:.2f} s (rebuilt={info['rebuilt']})")
+    for ln in info["log"].splitlines():
+        entry = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                          r"((?:I(?:L[bi]\d+E)+E)?)", ln)
+        if entry:
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([bi])(\d+)E", entry.group(2))]
+            print("ptxas: " + entry.group(1)
+                  + (f"<{', '.join(args)}>" if args else ""))
+        elif "registers" in ln or "spill" in ln:
+            print("ptxas:", ln.strip())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
@@ -792,17 +1000,7 @@ def main(argv=None) -> int:
         print(card)
 
         _build.load()
-        info = _build.build_info
-        print(f"build: {info['seconds']:.2f} s (rebuilt={info['rebuilt']})")
-        for ln in info["log"].splitlines():
-            entry = re.search(r"Compiling entry function '\w*?\d([a-z_]+"
-                              r"_kernel)(?:I\w*?Li(\d+)E)?", ln)
-            if entry:
-                print("ptxas: {}{}".format(entry.group(1), "" if entry.group(2)
-                                           is None else f"<{entry.group(2)}>"))
-            elif "registers" in ln or "spill" in ln:
-                print("ptxas:", ln.strip())
-
+        print_build(_build.build_info)
         kern = kernel_phase(torch, dev)
         edge_phase(torch, dev)
 
@@ -821,16 +1019,20 @@ def main(argv=None) -> int:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": KERNEL_META[name]["source"],
-         "replaces": KERNEL_META[name]["replaces"],
-         "launches": paths["dis" if name in EXPECTED_PER_WINDOW["dis"]
-                             else "farneback"]["counts"][name],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
-        for name, k in kern.items()]}))
+    rows = []
+    for name, k in kern.items():
+        path = paths["dis" if name in EXPECTED_PER_WINDOW["dis"]
+                     else "farneback"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": KERNEL_META[name]["source"],
+            "replaces": KERNEL_META[name]["replaces"],
+            "launches": path["counts"][name],
+            "launches_per_window": path["counts"][name] / path["windows"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -178,15 +178,17 @@ int launch(const float* m0, const float* m1, const float* m2,
   // more than 48 KB of dynamic shared memory is opted into once per device
   // (a race only sets the attribute twice)
   static bool opted[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (smem > 48 * 1024 && (dev >= MAX_DEVICES || !opted[dev])) {
-    e = cudaFuncSetAttribute(box_blur_solve_kernel<R>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
-    if (dev < MAX_DEVICES) opted[dev] = true;
+    if (dev >= MAX_DEVICES || !opted[dev]) {
+      e = cudaFuncSetAttribute(box_blur_solve_kernel<R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < MAX_DEVICES) opted[dev] = true;
+    }
   }
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   box_blur_solve_kernel<R><<<grid, THREADS, smem, stream>>>(

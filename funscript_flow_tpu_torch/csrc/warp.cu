@@ -1,6 +1,6 @@
 // Bilinear samplers for Hopper (sm_90a): the relative warp of K2 (Farnebäck
-// R1 planes) and K5 (DIS refinement planes), and the absolute sampler of K4
-// (DIS patches, below).
+// R1 planes) and K5 (DIS refinement planes), and K4, the sampler of the DIS
+// patch search in its patch and dense forms (below).
 //
 // Replaces: funscript_flow_tpu/ops/pallas/warp.py warp_bilinear_pallas on the
 // Farnebäck path. Plain twin: funscript_flow_tpu_torch/ops/farneback.py
@@ -40,6 +40,7 @@
 // --fmad=false, so each product and sum is rounded as there (bitwise equal
 // on the card).
 
+#include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,22 +77,22 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copy rows [by, by + bh) x columns [bx, bx + bw) of a plane (row stride W)
-// into dst (row stride bw); with vec, bx and bw are multiples of 4 and the
-// plane is 16-byte aligned.
-__device__ __forceinline__ void stage_box(float* dst, const float* plane,
-                                          int W, int by, int bh, int bx,
-                                          int bw, bool vec) {
-  const int tid = threadIdx.y * 32 + threadIdx.x;
+// into dst (row stride ds) with the WTHREADS threads of a block; with vec,
+// bx, bw and ds are multiples of 4 and the plane is 16-byte aligned.
+__device__ __forceinline__ void stage_box(float* dst, int ds,
+                                          const float* plane, int W, int by,
+                                          int bh, int bx, int bw, bool vec) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   if (vec) {
     const int n4 = bw >> 2;
     for (int i = tid; i < bh * n4; i += WTHREADS) {
       const int r = i / n4, c = (i - r * n4) << 2;
-      cp_async16(dst + r * bw + c, plane + (by + r) * W + bx + c);
+      cp_async16(dst + r * ds + c, plane + (by + r) * W + bx + c);
     }
   } else {
     for (int i = tid; i < bh * bw; i += WTHREADS) {
       const int r = i / bw, c = i - r * bw;
-      cp_async4(dst + r * bw + c, plane + (by + r) * W + bx + c);
+      cp_async4(dst + r * ds + c, plane + (by + r) * W + bx + c);
     }
   }
 }
@@ -188,13 +189,13 @@ warp_bilinear_kernel(const float* __restrict__ R, const float* __restrict__ u,
   };
 
   if (staged) {
-    stage_box(s_box[0], src, W, by0, bh, bx0, bw, vec);
+    stage_box(s_box[0], bw, src, W, by0, bh, bx0, bw, vec);
     cp_async_commit();
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       if (p + 1 < P) {
-        stage_box(s_box[(p + 1) & 1], src + (p + 1) * plane, W, by0, bh,
-                  bx0, bw, vec);
+        stage_box(s_box[(p + 1) & 1], bw, src + (p + 1) * plane, W, by0,
+                  bh, bx0, bw, vec);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -250,69 +251,252 @@ extern "C" int ff_warp_bilinear(const float* R, const float* u, const float* v,
   return launch_warp<0>(R, u, v, out, B, P, H, W, st);
 }
 
-// K4: bilinear sample of one plane at absolute coordinates, the DIS dense
-// patch sampler's fetch (every descent step of every pyramid level).
+// K4: the bilinear sampler of the DIS patch search, in two forms of one
+// kernel body: the patch sampler (every descent step of every pyramid
+// level, and the densification weights) and the dense absolute sampler.
 //
-// Replaces: funscript_flow_tpu/ops/pallas/warp.py sample_abs_pallas. Plain
-// twin: funscript_flow_tpu_torch/models/dis.py bilinear_abs (the
-// counterpart of _bilinear_abs_packed); wrapper: ops/cuda/warp.py.
+// Replaces: funscript_flow_tpu/ops/pallas/warp.py sample_abs_pallas, which
+// the JAX DIS calls on a dense [B, ny*ps, nx*ps] coordinate grid. Plain
+// twins: funscript_flow_tpu_torch/models/dis.py _sample_patches_plain (the
+// patch form: _sample_patches_dense with bilinear_abs) and bilinear_abs (the
+// dense form, the counterpart of _bilinear_abs_packed); wrappers:
+// ops/cuda/warp.py sample_patches and sample_abs.
 //
-// What it computes: out[b,i,j] = bilinear sample of img[b] (h x w) at
-// (fy[b,i,j], fx[b,i,j]), coordinates pre-clamped by the caller to
-// [0, h-1] x [0, w-1]; y0 = clamp(floor(fy), 0, h-1), the +1 neighbour
-// edge-replicated, likewise in x. The output grid (Ho x Wo) is independent
-// of the source shape.
+// What it computes: the bilinear sample of img[b] (h x w) at (y, x), with
+// y0 = clamp(floor(y), 0, h-1), the +1 neighbour edge-replicated, likewise
+// in x:
+// - patch form: out[b,i,j,dy*ps+dx] at y = clamp(i*stride + pv[b,i,j], 0,
+//   h-ps) + dy, x = clamp(j*stride + pu[b,i,j], 0, w-ps) + dx, the corner
+//   formed in float32 as the twin forms it (i*stride is exact);
+// - dense form: out[b,o] at (fy[b,o], fx[b,o]), read from device memory.
 //
-// What bounds it: memory. Per output pixel it reads two coordinates (8 B)
-// and writes one value (4 B); the source plane (4-64 KB at the DIS levels)
-// is read once from device memory and then served from L1/L2, since
-// neighbouring outputs of a patch sample neighbouring source pixels.
-// Design: one thread per output pixel on the plain source plane. The TPU
-// kernel's lane padding, its (8, 128) output alignment and its
-// coord - iota round trip through the relative band warp existed only for
-// Mosaic and are gone.
+// What bounds it: memory, and at the DIS levels (3-14 MB written per call)
+// the host's cost of the call more than either. The patch form must read 8 B
+// of offsets per patch and the source plane and write 4 B per output; the
+// dense grid of the JAX design read 8 B of coordinates per output more,
+// and needed about 9 small eager launches to build and fold it per call.
 //
-// Numerics: the twin's expression order, built with --fmad=false.
-__global__ void __launch_bounds__(256)
-sample_abs_kernel(const float* __restrict__ img, const float* __restrict__ fy,
-                  const float* __restrict__ fx, float* __restrict__ out,
-                  int B, int h, int w, int Ho, int Wo) {
-  const size_t plane_out = (size_t)Ho * Wo;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * plane_out) return;
-  const int b = (int)(idx / plane_out);
+// Design: one block of 256 threads per (image, run of consecutive items);
+// an item is a patch (at most PATCHES_MAX, about 16 outputs per thread) or
+// an output. Consecutive threads take consecutive outputs, so a warp
+// covers half a patch (4 rows x 8 columns at ps = 8) and its stores, like
+// each patch's 64 outputs, are contiguous.
+// - The patch form first forms its patches' clamped corners (into shared
+//   memory) and reduces them to the source rows the block reads.
+// - When the source plane fits STAGE_MAX (any DIS level up to 128 x 128),
+//   the block copies those rows (the dense form: the whole plane) into
+//   shared memory with cp.async (16-byte copies where rows are whole
+//   float4s) and gathers from there. The staged row stride is congruent to
+//   8 or 24 modulo 32 floats, so the 4 rows x 8 columns of a warp's corner
+//   reads fall on 32 distinct banks.
+// - Otherwise the block gathers from device memory directly. Both branches
+//   do the same arithmetic in the same order on the same values.
+//
+// Numerics: the twins' expression order, built with --fmad=false (bitwise
+// equal on the card).
 
-  const float y = fy[idx];
-  const float x = fx[idx];
+namespace {
+
+constexpr int ST = 256;                  // sampler threads per block
+constexpr int SWARPS = ST / 32;
+constexpr int PATCHES_MAX = 128;         // patches per block, patch form
+constexpr int OUT_PER_BLOCK = 4096;      // outputs per block, about 16/thread
+constexpr int STAGE_MAX = 100 * 1024;    // bytes of the largest staged plane
+constexpr int MAX_DEVICES = 64;
+
+struct SampleGeom {
+  int h, w;        // source plane
+  int items;       // per image: patches (patch form) or outputs (dense)
+  int per_block;   // items per block
+  int nx, ps, stride;  // patch form: grid width, patch size, patch stride
+  int ld;          // row stride of the staged plane; 0: gather directly
+  int vec;         // 16-byte staging copies
+};
+
+// Bilinear sample at (y, x) of a plane whose rows row0.. are at s with row
+// stride ld, in the twins' order.
+__device__ __forceinline__ float bilinear(const float* s, int ld, int row0,
+                                          float y, float x, int h, int w) {
   const float yf = floorf(y);
   const float xf = floorf(x);
   const float wy = y - yf;
   const float wx = x - xf;
   const float omx = 1.f - wx;
   const float omy = 1.f - wy;
+  // clamp in float, then convert: equal to clip(int(floor)) for any finite
+  // coordinate
   const int y0 = (int)fminf(fmaxf(yf, 0.f), (float)(h - 1));
   const int x0 = (int)fminf(fmaxf(xf, 0.f), (float)(w - 1));
   const int y1 = min(y0 + 1, h - 1);
   const int x1 = min(x0 + 1, w - 1);
-
-  const float* s = img + (size_t)b * h * w;
-  const float top = s[(size_t)y0 * w + x0] * omx + s[(size_t)y0 * w + x1] * wx;
-  const float bot = s[(size_t)y1 * w + x0] * omx + s[(size_t)y1 * w + x1] * wx;
-  out[idx] = top * omy + bot * wy;
+  const float* r0 = s + (y0 - row0) * ld;
+  const float* r1 = s + (y1 - row0) * ld;
+  const float top = r0[x0] * omx + r0[x1] * wx;
+  const float bot = r1[x0] * omx + r1[x1] * wx;
+  return top * omy + bot * wy;
 }
 
-// img [B,h,w], fy/fx/out [B,Ho,Wo], all f32 on the device.
+// PATCH: the patch form (cy, cx = pv, pu [B, ny, nx]; PSC > 0 the patch
+// size at compile time, 0 at run time); else the dense form (cy, cx = fy,
+// fx [B, items]).
+template <bool PATCH, int PSC>
+__global__ void __launch_bounds__(ST)
+sample_kernel(const float* __restrict__ img, const float* __restrict__ cy,
+              const float* __restrict__ cx, float* __restrict__ out,
+              SampleGeom g) {
+  extern __shared__ float4 smem4[];
+  float* s_img = reinterpret_cast<float*>(smem4);
+  __shared__ float s_fy[PATCH ? PATCHES_MAX : 1];
+  __shared__ float s_fx[PATCH ? PATCHES_MAX : 1];
+  __shared__ int s_red[2][SWARPS];
+  const int tid = threadIdx.x;
+  const int ps = PSC > 0 ? PSC : g.ps;
+  const int npx = PATCH ? ps * ps : 1;  // outputs per item
+  const size_t ibase = (size_t)blockIdx.y * g.items;
+  const float* src = img + (size_t)blockIdx.y * g.h * g.w;
+  const int k0 = blockIdx.x * g.per_block;
+  const int nk = min(g.per_block, g.items - k0);
+
+  int lo = 0, hi = g.h - 1;  // the source rows the block reads
+  if (PATCH) {
+    int rmin = INT_MAX, rmax = -1;
+    for (int k = tid; k < nk; k += ST) {
+      const int i = (k0 + k) / g.nx;
+      const int j = (k0 + k) - i * g.nx;
+      const float fy = fminf(fmaxf((float)(i * g.stride) + cy[ibase + k0 + k],
+                                   0.f), (float)(g.h - ps));
+      const float fx = fminf(fmaxf((float)(j * g.stride) + cx[ibase + k0 + k],
+                                   0.f), (float)(g.w - ps));
+      s_fy[k] = fy;
+      s_fx[k] = fx;
+      rmin = min(rmin, (int)floorf(fy));
+      rmax = max(rmax, (int)floorf(fy));
+    }
+    rmin = __reduce_min_sync(0xffffffffu, rmin);
+    rmax = __reduce_max_sync(0xffffffffu, rmax);
+    if ((tid & 31) == 0) {
+      s_red[0][tid >> 5] = rmin;
+      s_red[1][tid >> 5] = rmax;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < SWARPS; ++k) {
+      rmin = min(rmin, s_red[0][k]);
+      rmax = max(rmax, s_red[1][k]);
+    }
+    // floor(corner + dy) lies in [floor(corner), floor(corner) + ps], and
+    // the +1 neighbour one row below
+    lo = rmin;
+    hi = min(g.h - 1, rmax + ps + 1);
+  }
+  if (g.ld) {
+    stage_box(s_img, g.ld, src, g.w, lo, hi - lo + 1, 0, g.w, g.vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  const float* s = g.ld ? s_img : src;
+  const int ld = g.ld ? g.ld : g.w;
+  const int row0 = g.ld ? lo : 0;
+
+  float* dst = out + (ibase + k0) * npx;
+  const int n_out = nk * npx;
+  for (int o = tid; o < n_out; o += ST) {
+    float y, x;
+    if (PATCH) {
+      const int k = o / npx;
+      const int q = o - k * npx;
+      const int dy = q / ps;
+      y = s_fy[k] + (float)dy;
+      x = s_fx[k] + (float)(q - dy * ps);
+    } else {
+      y = cy[ibase + k0 + o];
+      x = cx[ibase + k0 + o];
+    }
+    dst[o] = bilinear(s, ld, row0, y, x, g.h, g.w);
+  }
+}
+
+template <bool PATCH, int PSC>
+int launch_sample(const float* img, const float* cy, const float* cx,
+                  float* out, int B, SampleGeom g, cudaStream_t stream) {
+  // the staged plane's row stride: w rounded up to 16, plus 8
+  const int ld = (g.w + 15) / 16 * 16 + 8;
+  const size_t smem = (size_t)g.h * ld * sizeof(float);
+  g.ld = smem <= STAGE_MAX ? ld : 0;
+  g.vec = g.w % 4 == 0 && (uintptr_t)img % 16 == 0;
+  // the dense form stages the whole plane: at least twice its size in
+  // outputs per block
+  if (!PATCH && g.ld) g.per_block = std::max(g.per_block, 2 * g.h * g.w);
+  // more than 48 KB of dynamic shared memory is opted into once per device
+  // (a race only sets the attribute twice)
+  static bool opted[MAX_DEVICES] = {};
+  cudaError_t e;
+  if (g.ld && smem > 48 * 1024) {
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= MAX_DEVICES || !opted[dev]) {
+      e = cudaFuncSetAttribute(sample_kernel<PATCH, PSC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               STAGE_MAX);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < MAX_DEVICES) opted[dev] = true;
+    }
+  }
+  const int npx = PATCH ? g.ps * g.ps : 1;
+  const size_t plane = (size_t)g.h * g.w, n_in = (size_t)g.items;
+  for (int b0 = 0; b0 < B; b0 += 65535) {
+    const int nb = B - b0 < 65535 ? B - b0 : 65535;
+    const dim3 grid((g.items + g.per_block - 1) / g.per_block, nb);
+    sample_kernel<PATCH, PSC><<<grid, ST, g.ld ? smem : 0, stream>>>(
+        img + b0 * plane, cy + b0 * n_in, cx + b0 * n_in,
+        out + b0 * n_in * npx, g);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// Patch form. img [B,h,w], pu/pv [B,ny,nx] (x and y offsets), out
+// [B,ny,nx,ps*ps], all f32 on the device. Returns the launch's cudaError_t.
+extern "C" int ff_sample_patches(const float* img, const float* pu,
+                                 const float* pv, float* out, int B, int h,
+                                 int w, int ny, int nx, int ps, int stride,
+                                 void* stream) {
+  if (B < 1 || ny < 1 || nx < 1 || ps < 1 || ps > h || ps > w ||
+      stride < 1 || (long long)h * w > 0x7fffffff ||
+      (long long)ny * nx * ps * ps > 0x7fffffff ||
+      (long long)std::max(ny, nx) * stride > (1 << 24))
+    return (int)cudaErrorInvalidValue;
+  SampleGeom g{};
+  g.h = h;
+  g.w = w;
+  g.items = ny * nx;
+  g.per_block = std::max(1, std::min(PATCHES_MAX, OUT_PER_BLOCK / (ps * ps)));
+  g.nx = nx;
+  g.ps = ps;
+  g.stride = stride;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ps == 8) return launch_sample<true, 8>(img, pv, pu, out, B, g, st);
+  return launch_sample<true, 0>(img, pv, pu, out, B, g, st);
+}
+
+// Dense form. img [B,h,w], fy/fx/out [B,Ho,Wo], all f32 on the device.
 // Returns the launch's cudaError_t.
 extern "C" int ff_sample_abs(const float* img, const float* fy, const float* fx,
                              float* out, int B, int h, int w, int Ho, int Wo,
                              void* stream) {
-  if (B < 1 || h < 1 || w < 1 || Ho < 1 || Wo < 1)
+  if (B < 1 || h < 1 || w < 1 || Ho < 1 || Wo < 1 ||
+      (long long)h * w > 0x7fffffff || (long long)Ho * Wo > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const size_t total = (size_t)B * Ho * Wo;
-  const int threads = 256;
-  const size_t blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  sample_abs_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      img, fy, fx, out, B, h, w, Ho, Wo);
-  return (int)cudaGetLastError();
+  SampleGeom g{};
+  g.h = h;
+  g.w = w;
+  g.items = Ho * Wo;
+  g.per_block = OUT_PER_BLOCK;
+  return launch_sample<false, 0>(img, fy, fx, out, B, g,
+                                 (cudaStream_t)stream);
 }

@@ -13,13 +13,15 @@ propagation, per-patch densification weights) are the JAX module's.
 Two steps are hand-written CUDA kernels (``ops/cuda/warp.py``, source
 ``csrc/warp.cu``):
 
-* K4 ``sample_abs``: the dense patch sampler's bilinear fetch of I1 at
-  absolute coordinates, once per descent step and once more for the
-  densification weights (``gd_iters + 1`` launches per level);
+* K4 ``sample_patches``: the patch sampler, which forms each patch's
+  clamped corner from its offset and bilinearly samples I1 over the patch,
+  once per descent step and once more for the densification weights
+  (``gd_iters + 1`` launches per level);
 * K5 ``warp_planes``: the one relative warp of (I1, I1x, I1y) in each
   level's variational refinement.
 
-Their plain twins are :func:`bilinear_abs` here and
+Their plain twins are :func:`_sample_patches_plain` (the dense grid of
+:func:`_sample_patches_dense` fetched by :func:`bilinear_abs`) here and
 ``ops.farneback.warp_bilinear``. ``DISConfig(kernels="plain")`` runs the
 twins on any device (the reference run of the kernel checks); with
 ``"auto"`` the wrappers launch the kernels on CUDA tensors and compute the
@@ -85,12 +87,12 @@ class DISConfig:
 
 
 def _samplers(kernels: str):
-    """(absolute sampler, relative plane warp) for ``kernels``."""
+    """(patch sampler, relative plane warp) for ``kernels``."""
     if kernels == "auto":
         from ..ops.cuda import warp as kwarp
 
-        return kwarp.sample_abs, kwarp.warp_planes
-    return bilinear_abs, _warp_planes_plain
+        return kwarp.sample_patches, kwarp.warp_planes
+    return _sample_patches_plain, _warp_planes_plain
 
 
 def _warp_planes_plain(planes, u, v):
@@ -127,8 +129,8 @@ def _sample_patches_dense(img: torch.Tensor, py, px, uy, ux, ps: int,
 
     Patch corners are clamped to [0, dim - ps]; all patch pixels are laid
     out as one dense [B, ny*ps, nx*ps] absolute coordinate grid, fetched by
-    one ``sample`` call (K4, or its twin :func:`bilinear_abs`), and folded
-    back to the patch layout.
+    one ``sample`` call (:func:`bilinear_abs` in the twin of the
+    ``sample_patches`` kernel), and folded back to the patch layout.
     """
     B, h, w = img.shape
     ny, nx = py.shape
@@ -143,6 +145,25 @@ def _sample_patches_dense(img: torch.Tensor, py, px, uy, ux, ps: int,
     return (val.reshape(B, ny, ps, nx, ps)
                .permute(0, 1, 3, 2, 4)
                .reshape(B, ny, nx, ps * ps))
+
+
+def _patch_origins(ny: int, nx: int, stride: int, device):
+    """(py, px) [ny, nx]: the patch grid's corners i*stride, j*stride
+    (exact in float32)."""
+    ys = torch.arange(ny, dtype=torch.float32, device=device) * stride
+    xs = torch.arange(nx, dtype=torch.float32, device=device) * stride
+    return ys[:, None].expand(ny, nx), xs[None, :].expand(ny, nx)
+
+
+def _sample_patches_plain(img: torch.Tensor, pu: torch.Tensor,
+                          pv: torch.Tensor, ps: int,
+                          stride: int) -> torch.Tensor:
+    """The patches at the patch grid of ``stride`` moved by (pu, pv)
+    [B, ny, nx] -> [B, ny, nx, ps*ps] (plain twin of the
+    ``sample_patches`` kernel): :func:`_sample_patches_dense` with
+    :func:`bilinear_abs`."""
+    py, px = _patch_origins(pu.shape[1], pu.shape[2], stride, img.device)
+    return _sample_patches_dense(img, py, px, pv, pu, ps, bilinear_abs)
 
 
 def bilinear_abs(img: torch.Tensor, fy: torch.Tensor,
@@ -300,10 +321,6 @@ def _dis_level(I0, I1, u, v, cfg: DISConfig):
     ps, st = cfg.patch_size, cfg.patch_stride
     ny = (h - ps) // st + 1
     nx = (w - ps) // st + 1
-    py = (np.arange(ny) * st)[:, None] * np.ones((1, nx))
-    px = np.ones((ny, 1)) * (np.arange(nx) * st)[None, :]
-    py = torch.from_numpy(py.astype(np.float32)).to(dev)
-    px = torch.from_numpy(px.astype(np.float32)).to(dev)
 
     gx, gy = _sobel(I0)
     T = _extract_patches(I0, ny, nx, ps, st)
@@ -326,7 +343,7 @@ def _dis_level(I0, I1, u, v, cfg: DISConfig):
     max_disp = float(max(h, w))
 
     def patches(pu, pv):
-        P1 = _sample_patches_dense(I1, py, px, pv, pu, ps, sample)
+        P1 = sample(I1, pu, pv, ps, st)
         if cfg.use_mean_norm:
             P1 = P1 - P1.mean(dim=-1, keepdim=True)
         return P1

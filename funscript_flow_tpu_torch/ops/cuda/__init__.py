@@ -13,11 +13,11 @@ from . import _build
 
 __all__ = ["KERNELS", "launch_counts", "reset_launches"]
 
-# the wrapper entry points, one per TPU kernel they replace:
-# K1 polyexp.poly_exp, K2 warp.warp_bilinear, K3 flow_step.box_blur_solve,
-# K4 warp.sample_abs, K5 warp.warp_planes
+# the wrapper entry points: K1 polyexp.poly_exp, K2 warp.warp_bilinear,
+# K3 flow_step.box_blur_solve, K4 in two forms (warp.sample_abs, dense;
+# warp.sample_patches, the DIS patch sampler), K5 warp.warp_planes
 KERNELS = ("poly_exp", "warp_bilinear", "box_blur_solve", "sample_abs",
-           "warp_planes")
+           "sample_patches", "warp_planes")
 
 
 def launch_counts() -> dict:

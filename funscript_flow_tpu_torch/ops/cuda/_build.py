@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and launch them.
 
 The sources in ``funscript_flow_tpu_torch/csrc/*.cu`` have a plain C
 interface. On first use, ``nvcc`` compiles each source to an object (all
@@ -12,6 +12,13 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that every
 product and sum is rounded on its own, as in the plain PyTorch twins the
 kernels are checked against; no ``--use_fast_math`` (the center-of-motion
 argmax downstream is winner-take-all).
+
+The launch path is lean, because at the small pyramid levels the host's
+cost of a call exceeds the kernel's: each C entry point is resolved once,
+when the library loads; a launch takes no lock, reads the raw handle of
+PyTorch's current stream of the tensor's device (so a CUDA graph being
+captured on that stream records the launch) and switches the device only
+when the tensor is not on the current one.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load", "check_tensor", "launch", "SOURCES", "NVCC_FLAGS"]
+__all__ = ["load", "check_tensor", "check_planes", "same_device", "launch",
+           "SOURCES", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -49,12 +57,16 @@ _SIGNATURES = {
     "ff_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # img [B,h,w], fy, fx, out [B,Ho,Wo], B, h, w, Ho, Wo, stream
     "ff_sample_abs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # img [B,h,w], pu, pv [B,ny,nx], out [B,ny,nx,ps*ps], B, h, w, ny, nx,
+    # ps, stride, stream
+    "ff_sample_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # m0..m4, u, v, B, H, W, win, inv_area, stream
     "ff_box_blur_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()
 _lib = None
+_fns: dict = {}  # C entry point name -> its ctypes function, once loaded
 build_info: dict = {}  # seconds, log, rebuilt — read by chip_smoke.py
 # kernel launches per wrapper entry point since the last reset
 # (ops.cuda.launch_counts / reset_launches)
@@ -123,6 +135,7 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+            _fns[name] = fn
         build_info.update(seconds=time.perf_counter() - t0, log=log,
                           rebuilt=rebuilt)
         _lib = lib
@@ -135,22 +148,61 @@ def check_tensor(t: torch.Tensor, name: str, shape=None) -> None:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
 
 
-def launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
-    """Call one C entry point on ``device``'s current stream and add one to
-    the launch count of the wrapper's entry point ``kernel``; raise if it
-    reports a CUDA error (a refused launch never runs, and a later
-    synchronize would not report it)."""
-    if device.type != "cuda":
-        raise ValueError(f"{fn_name}: expected CUDA tensors, got {device}")
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
+def check_planes(ts, names, shape) -> None:
+    """Raise unless every tensor of ``ts`` is a contiguous float32 tensor
+    of ``shape`` and all lie on one device. One pass with no function call
+    per tensor, since it is on a launch's path; ``names`` serve only to say
+    which tensor fails."""
+    t0 = ts[0]
+    cuda, d = t0.is_cuda, t0.get_device()
+    for t in ts:
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape != shape or t.is_cuda is not cuda
+                or t.get_device() != d):
+            for name, tn in zip(names, ts):
+                check_tensor(tn, name, shape)
+            raise ValueError("all tensors must be on one device")
+    if not cuda:
+        same_device(*ts)  # off CUDA get_device() is -1 for every device
+
+
+def same_device(*ts) -> None:
+    """Raise unless all tensors lie on one device (for CUDA tensors with
+    the cheapest calls: this is on every launch's path)."""
+    t0 = ts[0]
+    if t0.is_cuda:
+        d = t0.get_device()
+        for t in ts:
+            if not t.is_cuda or t.get_device() != d:
+                raise ValueError("all tensors must be on one device")
+    else:
+        for t in ts:
+            if t.device != t0.device:
+                raise ValueError("all tensors must be on one device")
+
+
+def launch(kernel: str, fn_name: str, t: torch.Tensor, *args) -> None:
+    """Call one C entry point on the current stream of ``t``'s device and
+    add one to the launch count of the wrapper's entry point ``kernel``;
+    raise if it reports a CUDA error (a refused launch never runs, and a
+    later synchronize would not report it)."""
+    if not t.is_cuda:
+        raise ValueError(f"{fn_name}: expected CUDA tensors, got {t.device}")
+    index = t.get_device()
+    fn = _fns.get(fn_name)
+    if fn is None:
+        load()
+        fn = _fns[fn_name]
+    if index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError_t {rc}")
     launches[kernel] = launches.get(kernel, 0) + 1

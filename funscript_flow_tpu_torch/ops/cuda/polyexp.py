@@ -7,6 +7,7 @@ Replaces the Pallas kernel ``funscript_flow_tpu/ops/pallas/polyexp.py``
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -17,6 +18,18 @@ from ._build import check_tensor, launch
 __all__ = ["poly_exp", "MAX_POLY_N"]
 
 MAX_POLY_N = 8  # csrc/polyexp.cu MAX_N
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(poly_n: int, poly_sigma: float):
+    """The kernel's host arguments: the taps (g, xg, xxg) and the four
+    inverse-Gramian entries as float32 arrays, with their addresses (the
+    arrays stay referenced by the cache while the addresses are used)."""
+    g, xg, xxg, ig = farneback._poly_exp_tables(poly_n, poly_sigma)
+    taps = np.ascontiguousarray(np.concatenate([g, xg, xxg]), np.float32)
+    igs = np.asarray(ig, np.float32)
+    return (taps, igs, taps.ctypes.data_as(ctypes.c_void_p),
+            igs.ctypes.data_as(ctypes.c_void_p))
 
 
 def poly_exp(img: torch.Tensor, poly_n: int = 5,
@@ -32,15 +45,11 @@ def poly_exp(img: torch.Tensor, poly_n: int = 5,
         raise ValueError(f"img: expected [B, H, W], got {tuple(img.shape)}")
     if not 1 <= poly_n <= MAX_POLY_N:
         raise ValueError(f"poly_n must be in [1, {MAX_POLY_N}], got {poly_n}")
-    if img.device.type == "cpu":
+    if img.is_cpu:
         return torch.stack(farneback.poly_exp(img, poly_n, poly_sigma), dim=1)
     B, H, W = img.shape
-    out = torch.empty((B, 5, H, W), dtype=torch.float32, device=img.device)
-    g, xg, xxg, ig = farneback._poly_exp_tables(poly_n, poly_sigma)
-    taps = np.ascontiguousarray(np.concatenate([g, xg, xxg]), np.float32)
-    igs = np.asarray(ig, np.float32)
-    launch("poly_exp", "ff_poly_exp", img.device, img.data_ptr(),
-           out.data_ptr(), B, H, W, poly_n,
-           taps.ctypes.data_as(ctypes.c_void_p),
-           igs.ctypes.data_as(ctypes.c_void_p))
+    out = img.new_empty((B, 5, H, W))
+    _, _, taps, igs = _tables(poly_n, poly_sigma)
+    launch("poly_exp", "ff_poly_exp", img, img.data_ptr(), out.data_ptr(),
+           B, H, W, poly_n, taps, igs)
     return out

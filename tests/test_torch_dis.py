@@ -1,7 +1,7 @@
-"""Port DIS (models/dis.py, kernels K4 sample_abs and K5 warp_planes) vs the
-JAX package: its XLA functions and its Pallas kernels in interpret mode, on
-the same numpy inputs, plus the slice end to end (flow program and
-process_video with the DIS backend).
+"""Port DIS (models/dis.py, kernel K4 in its two forms sample_patches and
+sample_abs, and K5 warp_planes) vs the JAX package: its XLA functions and
+its Pallas kernels in interpret mode, on the same numpy inputs, plus the
+slice end to end (flow program and process_video with the DIS backend).
 
 Every JAX reference is computed once, in a module-scoped fixture, at three
 shapes: 128 px pairs (B=2, whose pyramid levels are 32 and 64 px), the
@@ -229,13 +229,20 @@ def test_sobel_d5_patches_match_jax(jax_dis, record_property):
         tdis._extract_patches(I0, 7, 7, 8, 4).numpy(), jax_dis["patches"])
 
 
-@pytest.mark.parametrize("dims", [(64, 64, 15, 15), (32, 32, 7, 7),
-                                  (40, 48, 9, 11)])
-def test_sample_patches_dense_matches_jax(dims, record_property):
+PATCH_DIMS = [(64, 64, 15, 15), (32, 32, 7, 7), (40, 48, 9, 11)]
+
+
+@pytest.mark.parametrize("dims,st", [
+    pytest.param(d, 4, id=f"dims{i}") for i, d in enumerate(PATCH_DIMS)] + [
+    pytest.param(d, 3, id=f"dims{i}-stride3")
+    for i, d in enumerate(PATCH_DIMS)])
+def test_sample_patches_dense_matches_jax(dims, st, record_property):
     """Far out-of-range offsets exercise the patch-corner clamp (dims of
-    tests/test_dis.py:109); bar atol 5e-5, that test's."""
+    tests/test_dis.py:109, at the strides of the three presets); bar atol
+    5e-5, that test's. The patch sampler's CPU route (K4's twin) equals
+    the dense sampler with bilinear_abs bitwise."""
     h, w, ny, nx = dims
-    st, ps, B = 4, 8, 5
+    ps, B = 8, 5
     rng = np.random.default_rng(0)
     img = rng.random((B, h, w)).astype(np.float32)
     py = ((np.arange(ny) * st)[:, None] * np.ones((1, nx))).astype(np.float32)
@@ -244,11 +251,30 @@ def test_sample_patches_dense_matches_jax(dims, record_property):
     ux = rng.uniform(-w, w, (B, ny, nx)).astype(np.float32)
     want = np.asarray(jdis._sample_patches_dense(
         *(jnp.asarray(a) for a in (img, py, px, uy, ux)), ps))
+    dense = None
     for sample in (tdis.bilinear_abs, warp.sample_abs):
         got = tdis._sample_patches_dense(_t(img), _t(py), _t(px), _t(uy),
                                          _t(ux), ps, sample).numpy()
         record_property("max_abs_err", float(np.abs(got - want).max()))
         np.testing.assert_allclose(got, want, atol=5e-5)
+        dense = got
+    got = warp.sample_patches(_t(img), _t(ux), _t(uy), ps, st).numpy()
+    assert got.shape == (B, ny, nx, ps * ps)
+    np.testing.assert_array_equal(got, dense)
+    np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+@pytest.mark.parametrize("ny,nx,st", [(15, 15, 4), (9, 11, 3), (1, 1, 7)])
+def test_patch_origins_exact(ny, nx, st):
+    """The patch grid's corners equal the numpy grid the level built
+    before (and the JAX module builds), bitwise."""
+    py, px = tdis._patch_origins(ny, nx, st, "cpu")
+    np.testing.assert_array_equal(
+        py.numpy(), ((np.arange(ny) * st)[:, None]
+                     * np.ones((1, nx))).astype(np.float32))
+    np.testing.assert_array_equal(
+        px.numpy(), (np.ones((ny, 1))
+                     * (np.arange(nx) * st)[None, :]).astype(np.float32))
 
 
 @pytest.mark.parametrize("step", ["level", "refine"])
@@ -431,6 +457,25 @@ def test_wrappers_validate_inputs():
         warp.warp_planes([img, img, img], c, c)
 
 
+def test_sample_patches_validates_inputs():
+    img = torch.zeros((2, 16, 16))
+    off = torch.zeros((2, 3, 3))
+    with pytest.raises(TypeError):
+        warp.sample_patches(img, off.double(), off, 8, 4)
+    with pytest.raises(ValueError):
+        warp.sample_patches(img, off, off[:, :2], 8, 4)    # shape mismatch
+    with pytest.raises(ValueError):
+        warp.sample_patches(img[:1], off, off, 8, 4)       # batch mismatch
+    with pytest.raises(ValueError):
+        warp.sample_patches(img, off[:, :, ::2], off[:, :, ::2], 8, 4)
+    with pytest.raises(ValueError):
+        warp.sample_patches(img, off, off, 17, 4)          # patch > source
+    with pytest.raises(ValueError):
+        warp.sample_patches(img, off, off, 8, 0)
+    got = warp.sample_patches(img, off, off, 8, 4)
+    assert got.shape == (2, 3, 3, 64) and not got.any()
+
+
 # ---------------------------------------------- kernels on the card
 
 @pytest.mark.cuda
@@ -449,7 +494,34 @@ def test_sample_abs_kernel_matches_twin(cuda_device, h, Ho):
     assert kcuda.launch_counts()["sample_abs"] == 1
     want = tdis.bilinear_abs(img, fy, fx)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 2e-5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,ps,st", [
+    (32, 32, 8, 4), (64, 64, 8, 4), (32, 32, 8, 3), (64, 64, 8, 3),
+    (128, 128, 8, 3), (40, 48, 8, 4), (40, 48, 8, 3), (200, 232, 8, 4),
+    (40, 48, 5, 2)])
+def test_sample_patches_kernel_matches_twin(cuda_device, h, w, ps, st):
+    """The patch grids of the three presets on 256 px frames, an odd source,
+    one too large to stage and another patch size; offsets of a few px, one
+    in 16 far out of range (both corner clamps)."""
+    from funscript_flow_tpu_torch.ops import cuda as kcuda
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    ny, nx = (h - ps) // st + 1, (w - ps) // st + 1
+    img = torch.rand((4, h, w), generator=g, device=cuda_device) * 255
+    near = torch.randn((2, 4, ny, nx), generator=g, device=cuda_device) * 2
+    far = (torch.rand((2, 4, ny, nx), generator=g, device=cuda_device) * 4
+           - 2) * max(h, w)
+    pick = torch.rand((2, 4, ny, nx), generator=g, device=cuda_device) < 1 / 16
+    pu, pv = (x.contiguous() for x in torch.where(pick, far, near))
+    kcuda.reset_launches()
+    got = warp.sample_patches(img, pu, pv, ps, st)
+    assert kcuda.launch_counts()["sample_patches"] == 1
+    want = tdis._sample_patches_plain(img, pu, pv, ps, st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -5,8 +5,8 @@ the same numpy inputs. Tolerances are the JAX package's own
 this CPU are far below them (see CHANGES.md).
 
 The kernel-vs-twin cases need a CUDA device: they carry the ``cuda`` marker
-and skip without one. Those of K2, K3 and K5 hold the kernel bitwise equal
-to its twin, at the odd shapes and winsizes too.
+and skip without one. They hold each kernel bitwise equal to its twin, at
+the odd shapes, winsizes and tap counts too.
 """
 
 import jax
@@ -76,11 +76,17 @@ def test_pyramid_plan_equal(h, w):
 
 # ------------------------------------------------------- K1 poly_exp twin
 
+# (shape, poly_n, poly_sigma): the two real settings at a pyramid level's
+# width, then every tap count the kernel takes at a small odd shape
+POLY_CASES = [((2, 64, 128), 5, 1.2), ((1, 64, 128), 7, 1.5)] + [
+    ((1, 21, 37), n, 0.3 * n + 0.3) for n in range(1, 9)]
+
+
 @pytest.fixture(scope="module")
 def polyexp_cases():
     rng = np.random.default_rng(0)
     cases = []
-    for shape, n, sigma in [((2, 64, 128), 5, 1.2), ((1, 64, 128), 7, 1.5)]:
+    for shape, n, sigma in POLY_CASES:
         img = (rng.random(shape) * 255).astype(np.float32)
         pallas = poly_exp_pallas(jnp.asarray(img), n, sigma)  # interpret
         xla = jfb.poly_exp(jnp.asarray(img), n, sigma)
@@ -89,14 +95,18 @@ def polyexp_cases():
     return cases
 
 
-@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("case", range(len(POLY_CASES)))
 @pytest.mark.parametrize("oracle", ["pallas", "xla"])
 def test_poly_exp_twin_matches_jax(polyexp_cases, case, oracle,
                                    record_property):
+    """K1's CPU route is the twin, bitwise; both JAX oracles within 1e-4
+    (tests/test_pallas.py's bar)."""
     img, n, sigma, pallas, xla = polyexp_cases[case]
     want = pallas if oracle == "pallas" else xla
     got = polyexp.poly_exp(torch.from_numpy(img), n, sigma)  # CPU: the twin
     assert got.shape == (img.shape[0], 5) + img.shape[1:]
+    assert torch.equal(got, torch.stack(tfb.poly_exp(
+        torch.from_numpy(img), n, sigma), 1))
     record_property("max_abs_err", max(
         float(np.abs(got[:, p].numpy() - want[p]).max()) for p in range(5)))
     for p in range(5):
@@ -303,23 +313,72 @@ def test_cpu_route_does_not_count_launches():
     warp.warp_bilinear(R, x * 0, x * 0)
     flow_step.box_blur_solve(R.unbind(1), 15)
     warp.sample_abs(x, x * 0, x * 0)
+    warp.sample_patches(x, x[:, :7, :7] * 0, x[:, :7, :7] * 0, 8, 4)
     warp.warp_planes([x] * 3, x * 0, x * 0)
     assert kcuda.launch_counts() == {"poly_exp": 0, "warp_bilinear": 0,
                                      "box_blur_solve": 0, "sample_abs": 0,
-                                     "warp_planes": 0}
+                                     "sample_patches": 0, "warp_planes": 0}
+
+
+def test_launch_path_rejects_cpu_and_mixed_devices():
+    """The launch path raises before it loads anything for a CPU tensor,
+    and its checks raise for a wrong dtype or shape or for tensors on two
+    devices."""
+    from funscript_flow_tpu_torch.ops.cuda import _build
+
+    x = torch.zeros((1, 8, 8))
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        _build.launch("poly_exp", "ff_poly_exp", x)
+    _build.same_device(x, x, x)
+    with pytest.raises(ValueError, match="one device"):
+        _build.same_device(x, x.to("meta"))
+    names = ("a", "b", "c")
+    _build.check_planes((x, x, x), names, x.shape)
+    with pytest.raises(TypeError, match="c: expected float32"):
+        _build.check_planes((x, x, x.double()), names, x.shape)
+    with pytest.raises(ValueError, match="b: expected shape"):
+        _build.check_planes((x, x[:, :4], x), names, x.shape)
+    with pytest.raises(ValueError, match="one device"):
+        _build.check_planes((x, x, x.to("meta")), names, x.shape)
+
+
+@pytest.mark.parametrize("n,sigma", [(n, 0.3 * n + 0.3) for n in range(1, 9)])
+def test_poly_exp_kernel_tables(n, sigma):
+    """The host arguments K1 is launched with: the float32 taps g, xg, xxg
+    in order and the four inverse-Gramian entries rounded to float32, as the
+    twin multiplies by them."""
+    taps, igs, _, _ = polyexp._tables(n, sigma)
+    g, xg, xxg, ig = tfb._poly_exp_tables(n, sigma)
+    assert taps.dtype == np.float32 and taps.shape == (3 * (2 * n + 1),)
+    np.testing.assert_array_equal(taps, np.concatenate([g, xg, xxg]))
+    np.testing.assert_array_equal(igs, np.float32(ig))
 
 
 # ---------------------------------------------- kernels on the card
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,sigma", [(5, 1.2), (7, 1.5)])
 @pytest.mark.parametrize("size", [256, 128, 64, 32])
-def test_poly_exp_kernel_matches_twin(cuda_device, size):
+def test_poly_exp_kernel_matches_twin(cuda_device, size, n, sigma):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     img = torch.rand((6, size, size), generator=g, device=cuda_device) * 255
-    got = polyexp.poly_exp(img, 5, 1.2)
-    want = torch.stack(tfb.poly_exp(img, 5, 1.2), 1)
+    got = polyexp.poly_exp(img, n, sigma)
+    want = torch.stack(tfb.poly_exp(img, n, sigma), 1)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", range(1, 9))
+@pytest.mark.parametrize("shape", [(3, 45, 77), (3, 1, 1), (3, 40, 5),
+                                   (2, 100, 140)])
+def test_poly_exp_kernel_edge_shapes(cuda_device, shape, n):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    img = torch.rand(shape, generator=g, device=cuda_device) * 255
+    got = polyexp.poly_exp(img, n, 0.3 * n + 0.3)
+    want = torch.stack(tfb.poly_exp(img, n, 0.3 * n + 0.3), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 # K2 (P=5) and K5 (P=3) equal their twin bitwise, in both the staged and
@@ -338,7 +397,7 @@ def test_warp_kernel_matches_twin(cuda_device, shape, P, scale):
     u = torch.randn(shape, generator=g, device=cuda_device) * scale
     v = torch.randn(shape, generator=g, device=cuda_device) * scale
     got = (warp.warp_bilinear(R, u, v) if P == 5
-           else warp.warp_planes(R.unbind(1), u, v))
+           else warp.warp_planes([p.contiguous() for p in R.unbind(1)], u, v))
     want = tfb.warp_bilinear(R, u, v)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
