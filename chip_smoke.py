@@ -48,10 +48,36 @@ when any phase fails. Phases, in order:
 8. device signal chain: a one-hour signal (108,000 samples at 30 fps)
    through ``compute_actions`` with ``signal_backend="auto"`` on the card,
    checked against the host chain (within 0.5 of its 0-100 curve);
-9. with ``--profile DIR`` only: one full window of each flow algorithm
+9. folder: three clips (``FOLDER_CLIPS``: 900, 1200 and 1800 frames)
+   through the runner's folder workers (``_run_videos_parallel``) on
+   ``cuda:0``, with 1 and with 3 workers, for Farnebäck and for DIS
+   (fast): each clip's funscript byte-identical across the runs, each
+   kernel launched its expected count per window summed over the clips;
+   the folder's pairs/s per run. The card has no OpenCV, so the clips are
+   placeholder files that a replaced ``runner._open_video`` serves from
+   memory, from any ``start_sample``;
+10. checkpoint: the 1800-frame clip with ``checkpoint=True`` and a
+   sidecar every ``CKPT_EVERY_PAIRS`` pairs, cancelled after the runner's
+   third poll, then resumed: the resume is logged, the funscript is the
+   uninterrupted run's bytes and the sidecar is gone;
+11. profile: a ``PROFILE_FRAMES``-frame clip with ``profile_dir``: one
+   chrome trace, naming ``poly_exp_kernel``; ``utils.devprof.
+   device_profile`` of one full Farnebäck window beside the device time
+   of one traced window summed as phase 12 sums it;
+12. mesh and SP: the 1800-frame clip through ``StreamingFlowAnalyzer``
+   with a mesh of two devices (``cuda:0`` and ``cuda:1`` when the machine
+   has two cards, else ``cuda:0`` twice), bitwise equal to no mesh; the
+   one-hour signal through ``signal_chain_sharded`` over ``cuda:0`` four
+   times (and through ``compute_actions`` with that mesh), within 1e-3 of
+   the two-device run and 0.5 of the host chain;
+13. with ``--profile DIR`` only: one full window of each flow algorithm
    timed and traced (torch.profiler), device time summed by kernel name,
-   traces in DIR;
-10. one JSON line listing the kernels, then the contract line.
+   traces in DIR; the folder of each flow algorithm with 1 and with 3
+   workers once more, traced: the card's busy share of each; and the host's
+   launch rate of small eager ops from 1 and from 3 threads;
+14. one JSON line listing the kernels, then the contract line.
+
+Every line of phases 9-12 ends with the card's name and power limit.
 
 Imports nothing of JAX; data is made from ``SEED`` on the card.
 """
@@ -98,6 +124,12 @@ SIGNAL_SAMPLES = 108_000  # one hour at 30 fps
 FRAMES = 1800             # 60 s at 30 fps
 SEED = 0
 REPS = 10                 # timings per median
+# the folder phase's clips: (frames, seed); the last is the main clip
+FOLDER_CLIPS = ((900, SEED + 1), (1200, SEED + 2), (FRAMES, SEED))
+FOLDER_WORKERS = (1, 3)
+CKPT_EVERY_PAIRS = 240
+PROFILE_FRAMES = 300
+SP_SHARDS = 4
 
 KERNEL_META = {
     "poly_exp": {
@@ -851,11 +883,12 @@ def kernels_vs_plain(torch, dev, frames, algorithm: str) -> dict:
     return diff
 
 
-def signal_chain_phase(torch, dev) -> None:
+def signal_chain_phase(torch, dev):
     """A one-hour signal through ``compute_actions`` with
     ``signal_backend="auto"`` on the card: it must route to the device
     chain and stay within 0.5 of the host chain's 0-100 curve
-    (tests/test_signal_jax.py:109). Prints both chains' times."""
+    (tests/test_signal_jax.py:109). Prints both chains' times; returns the
+    signal (dots, cuts) and the host chain's curve."""
     from funscript_flow_tpu_torch.runner import compute_actions
     from funscript_flow_tpu_torch.utils.params import Params
 
@@ -887,6 +920,22 @@ def signal_chain_phase(torch, dev) -> None:
     check(err <= 0.5, f"device signal chain off the host chain by {err}")
     check(len(dev_acts) > 1000 and all(0 <= a["pos"] <= 100 for a in dev_acts),
           "device signal chain: implausible actions")
+    return dots, cuts, norm
+
+
+def device_rows(prof) -> list:
+    """(device us, name, count) of each kernel (and copy) of a finished
+    ``torch.profiler`` trace, largest first: device-side rows only, since a
+    host op's row repeats its kernels' time."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    return sorted(((dev_us(e), e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                  reverse=True)
 
 
 # the hand kernels' symbols, as the profiler names them: K1, K2/K5, K3,
@@ -912,8 +961,6 @@ def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
         ms = time_ms(torch, lambda: flow_chunk_program(win, B_MAIN, cfg))
         print(f"profile {algorithm}: flow program, one {B_MAIN}-pair window, "
               f"kernels={k}: {ms:.3f} ms ({B_MAIN / ms * 1e3:.1f} pairs/s)")
-    from torch.autograd import DeviceType
-
     cfg = PipelineConfig(flow_algorithm=algorithm)
     for cycle in range(2):  # the first cycle pays the tracer's start-up
         torch.cuda.synchronize()
@@ -925,15 +972,7 @@ def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir,
                                           f"window_trace_{algorithm}.json"))
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events only: a host op's row repeats its kernels' time
-    rows = sorted(((dev_us(e), e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  reverse=True)
+    rows = device_rows(prof)
     total = sum(r[0] for r in rows)
     print(f"profile {algorithm}: traced window wall {wall_ms:.3f} ms, device "
           f"time {total / 1e3:.3f} ms ({total / 1e3 / wall_ms:.1%} busy), "
@@ -950,6 +989,305 @@ def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
     for us, key, count in rows[:15]:
         print(f"profile {algorithm}: {us / 1e3:9.3f} ms {count:5d}x "
               f"{key[:90]}")
+
+
+# ------------------------------------------ folder, checkpoint, profile, mesh
+
+def serve_clips(folder: str, clips: dict) -> None:
+    """Put a placeholder file for each clip name of ``clips`` (name ->
+    frames) into ``folder`` and make the runner open each such file as
+    (VideoMeta, ListSource) from any ``start_sample``: the card has no
+    OpenCV to decode a file."""
+    from funscript_flow_tpu_torch import runner
+    from funscript_flow_tpu_torch.io.decode import VideoMeta
+
+    for name in clips:
+        open(os.path.join(folder, name), "wb").close()
+
+    def open_clip(video_path, params, cancel_flag, start_sample=0):
+        frames = clips[os.path.basename(video_path)]
+        return (VideoMeta(total_frames=len(frames), fps=30.0, width=256,
+                          height=256), ListSource(frames[start_sample:]))
+
+    runner._open_video = open_clip
+
+
+def _read_log(logs) -> tuple:
+    """(windows, pairs) summed over the "Flow windows dispatched" lines."""
+    hits = [re.search(r"Flow windows dispatched: (\d+) \((\d+) pairs\)", m)
+            for m in logs]
+    hits = [h for h in hits if h]
+    return (sum(int(h.group(1)) for h in hits),
+            sum(int(h.group(2)) for h in hits))
+
+
+def busy_share(prof, wall_s: float) -> tuple:
+    """(union of the device events' intervals, their sum), in ms, of a
+    finished trace; the union over the wall time is the card's busy
+    share."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return union / 1e3, sum(b - a for a, b in spans) / 1e3
+
+
+def folder_phase(torch, dev, card, files, algorithm, trace=False) -> dict:
+    """The clips through ``_run_videos_parallel`` with each
+    ``FOLDER_WORKERS`` count on ``dev``; returns the funscripts' bytes (the
+    same for every count, checked). With ``trace``: one more run with 3 and
+    with 1 workers under ``torch.profiler``, printing the card's busy
+    share."""
+    from funscript_flow_tpu_torch import runner
+    from funscript_flow_tpu_torch.io.funscript import funscript_path
+    from funscript_flow_tpu_torch.ops import cuda as kcuda
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    params = Params(overwrite=True,
+                    backend="DIS" if algorithm == "dis" else "CUDA")
+    outs = None
+
+    def run(workers):
+        logs = []
+        kcuda.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = runner._run_videos_parallel(files, params, logs.append, None,
+                                          workers, n_devices=1,
+                                          device=str(dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not err, f"folder {algorithm}, {workers} workers: an error:\n"
+              + "\n".join(logs))
+        return logs, wall, kcuda.launch_counts()
+
+    for workers in FOLDER_WORKERS:
+        logs, wall, counts = run(workers)
+        windows, pairs = _read_log(logs)
+        check_launches(counts, windows, algorithm)
+        got = {f: open(funscript_path(f), "rb").read() for f in files}
+        if outs is None:
+            outs = got
+        for f in files:
+            check(got[f] == outs[f], f"folder {algorithm}: "
+                  f"{os.path.basename(f)} differs with {workers} workers")
+        print(f"folder {algorithm}, {workers} worker(s) on {dev}: "
+              f"{len(files)} clips, {pairs} pairs in {windows} windows, "
+              f"wall {wall:.3f} s, {pairs / wall:.1f} pairs/s; launches "
+              f"{counts}; funscripts byte-identical ({card})")
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        for workers in reversed(FOLDER_WORKERS):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall, _ = run(workers)
+            union, total = busy_share(prof, wall)
+            print(f"folder {algorithm}, {workers} worker(s), traced: wall "
+                  f"{wall:.3f} s, device busy {union:.1f} ms "
+                  f"({union / 1e3 / wall:.1%} of the wall), device events "
+                  f"{total:.1f} ms summed ({card})")
+    return outs
+
+
+def launch_rate(torch, dev, card, n: int = 20_000) -> None:
+    """Host launch throughput of small eager ops (``torch.add`` into a
+    preallocated output, 1024 floats) launched from 1 and from 3 threads
+    at once, each thread on a stream of its own: the folder workers' launch
+    path without their clips. Prints launches/s for each."""
+    import threading
+
+    def launch_loop(stream, x, y, k):
+        with torch.cuda.stream(stream):
+            for _ in range(k):
+                torch.add(x, 1.0, out=y)
+
+    for threads in (1, 3, 1, 3):
+        bufs = [(torch.cuda.Stream(device=dev),
+                 torch.zeros(1024, device=dev), torch.empty(1024, device=dev))
+                for _ in range(threads)]
+        for b in bufs:
+            launch_loop(*b, 100)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=launch_loop, args=(*b, n)) for b in bufs]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        print(f"launch rate, {threads} thread(s): {threads * n} launches in "
+              f"{wall:.3f} s, {threads * n / wall:.0f} launches/s ({card})")
+
+
+def checkpoint_phase(torch, dev, card, video, baseline: bytes) -> None:
+    """``video`` with ``checkpoint=True``, a sidecar every
+    ``CKPT_EVERY_PAIRS`` pairs, cancelled after the third poll, then
+    resumed: it must log the resume, write ``baseline`` and clear the
+    sidecar."""
+    from funscript_flow_tpu_torch.io import checkpoint as ck
+    from funscript_flow_tpu_torch.io.funscript import funscript_path
+    from funscript_flow_tpu_torch.runner import process_video
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    out = funscript_path(video)
+    sidecar = ck.sidecar_path(out)
+    os.remove(out)
+    params = Params(overwrite=True, checkpoint=True)
+    polls = {"n": 0}
+
+    def cancel():
+        polls["n"] += 1
+        return polls["n"] > 3
+
+    every, ck.CHECKPOINT_EVERY_PAIRS = ck.CHECKPOINT_EVERY_PAIRS, \
+        CKPT_EVERY_PAIRS
+    try:
+        logs = []
+        err = process_video(video, params, logs.append, cancel_flag=cancel,
+                            device=str(dev))
+        check(not err and not os.path.exists(out)
+              and os.path.exists(sidecar),
+              "checkpoint: the cancelled run left no sidecar (or an "
+              "output):\n" + "\n".join(logs))
+        with np.load(sidecar) as z:
+            saved = len(z["dots"])
+        logs = []
+        t0 = time.perf_counter()
+        err = process_video(video, params, logs.append, device=str(dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ck.CHECKPOINT_EVERY_PAIRS = every
+    resumed = [m for m in logs if m.startswith("Resuming from checkpoint")]
+    check(not err and resumed, "checkpoint: no resume:\n" + "\n".join(logs))
+    same = open(out, "rb").read() == baseline
+    check(same, "checkpoint: the resumed funscript differs from the "
+                "uninterrupted run's")
+    check(not os.path.exists(sidecar), "checkpoint: sidecar not cleared")
+    print(f"checkpoint: cancelled after poll 3 with {saved} pairs saved; "
+          f"{resumed[0]} Resumed run {wall:.3f} s; funscript byte-identical "
+          f"to the uninterrupted run, sidecar cleared ({card})")
+
+
+def profile_phase(torch, dev, card, video, frames) -> None:
+    """``video`` through ``process_video`` with ``profile_dir``: one chrome
+    trace that names ``poly_exp_kernel``. Then ``device_profile`` of one
+    full Farnebäck window beside one traced window's summed device
+    events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from funscript_flow_tpu_torch.models.pipeline import (PipelineConfig,
+                                                          flow_chunk_program)
+    from funscript_flow_tpu_torch.runner import process_video
+    from funscript_flow_tpu_torch.utils.devprof import device_profile
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    with tempfile.TemporaryDirectory() as prof_dir:
+        logs = []
+        t0 = time.perf_counter()
+        err = process_video(video, Params(overwrite=True,
+                                          profile_dir=prof_dir),
+                            logs.append, device=str(dev))
+        wall = time.perf_counter() - t0
+        check(not err, "profile: process_video failed:\n" + "\n".join(logs))
+        traces = os.listdir(prof_dir)
+        check(len(traces) == 1, f"profile: traces {traces}")
+        path = os.path.join(prof_dir, traces[0])
+        size = os.path.getsize(path)
+        with open(path) as f:
+            named = "poly_exp_kernel" in f.read()
+    check(named, "profile: the trace does not name poly_exp_kernel")
+    print(f"profile: {PROFILE_FRAMES}-frame clip with profile_dir in "
+          f"{wall:.3f} s; trace {traces[0]} ({size} bytes) names "
+          f"poly_exp_kernel ({card})")
+    win = torch.from_numpy(np.stack(frames[: B_MAIN + 1])).to(dev)
+    cfg = PipelineConfig()
+    ms = device_profile(flow_chunk_program, win, B_MAIN, cfg, runs=3,
+                        label=f"profile: device_profile, one {B_MAIN}-pair "
+                              f"Farnebäck window ({card})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        flow_chunk_program(win, B_MAIN, cfg)["dots"].cpu()
+    traced = sum(r[0] for r in device_rows(prof)) / 1e3
+    check(ms > 0 and traced > 0, "profile: no device time")
+    print(f"profile: device_profile {ms:.3f} ms per window; one traced "
+          f"window's device events {traced:.3f} ms ({card})")
+
+
+def mesh_phase(torch, dev, card, frames) -> None:
+    """The clip through ``StreamingFlowAnalyzer`` with no mesh and with a
+    mesh of two devices: every output bitwise equal."""
+    from funscript_flow_tpu_torch.models.pipeline import (
+        PipelineConfig, StreamingFlowAnalyzer)
+
+    if torch.cuda.device_count() >= 2:
+        mesh, which = [torch.device("cuda", i) for i in range(2)], \
+            "cuda:0 and cuda:1"
+    else:
+        mesh, which = [dev, dev], "cuda:0 twice (one card)"
+    out, times = {}, {}
+    for label, kw in (("none", {"device": dev}), ("mesh", {"mesh": mesh})):
+        an = StreamingFlowAnalyzer(PipelineConfig(),
+                                   n_pairs_total=len(frames) - 1, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = []
+        for s in range(0, len(frames), 240):
+            res.extend(an.push(frames[s : s + 240]))
+        res.extend(an.flush())
+        times[label] = (time.perf_counter() - t0, an.windows_dispatched)
+        out[label] = {k: np.concatenate([r[k] for r in res]) for k in an.KEYS}
+    diff = [k for k in out["none"]
+            if not np.array_equal(out["none"][k], out["mesh"][k])]
+    print(f"mesh: {len(frames) - 1} pairs, no mesh {times['none'][0]:.3f} s "
+          f"in {times['none'][1]} windows, mesh of {which} "
+          f"{times['mesh'][0]:.3f} s in {times['mesh'][1]} windows; "
+          f"outputs differing: {diff or 'none'} ({card})")
+    check(not diff, f"mesh: outputs {diff} not bitwise equal to no mesh")
+
+
+def sp_phase(torch, dev, card, signal) -> None:
+    """The one-hour signal through ``signal_chain_sharded`` over
+    ``SP_SHARDS`` shards on ``dev`` (and through ``compute_actions`` with
+    that mesh): within 1e-3 of the two-shard run and 0.5 of the host chain
+    (tests/test_parallel.py:51,67-68)."""
+    from funscript_flow_tpu_torch.parallel.signal_sp import \
+        signal_chain_sharded
+    from funscript_flow_tpu_torch.runner import compute_actions
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    dots, cuts, host_norm = signal
+    win, nwin = int(2.0 * 30), int(3.0 * 30)  # Params' 2 s and 3 s at 30 fps
+    mesh = [dev] * SP_SHARDS
+    signal_chain_sharded(dots, cuts, mesh, win, nwin)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    norm, mask = signal_chain_sharded(dots, cuts, mesh, win, nwin)
+    wall = time.perf_counter() - t0
+    two, _ = signal_chain_sharded(dots, cuts, [dev] * 2, win, nwin)
+    logs = []
+    acts, routed = compute_actions(dots, cuts, np.arange(len(dots)), 30.0,
+                                   30.0, Params(), logs.append, device=dev,
+                                   mesh=mesh)
+    check(any("time-axis sharded" in m for m in logs),
+          f"sp: compute_actions did not take the sharded chain: {logs}")
+    e2, eh = (float(np.abs(norm - two).max()),
+              float(np.abs(norm - host_norm).max()))
+    er = float(np.abs(routed - norm).max())
+    print(f"sp: {len(dots)} samples over {SP_SHARDS} shards on {dev}: "
+          f"{wall:.4f} s, {int(mask.sum())} keyframes, {len(acts)} actions "
+          f"through compute_actions; max |norm - 2-shard| {e2:.3g} (tol "
+          f"1e-3), max |norm - host| {eh:.3g} (tol 0.5), compute_actions "
+          f"{er:.3g} ({card})")
+    check(e2 <= 1e-3 and eh <= 0.5 and er <= 1e-6,
+          f"sp: off its references: {e2}, {eh}, {er}")
 
 
 def print_build(info: dict) -> None:
@@ -1011,7 +1349,26 @@ def main(argv=None) -> int:
             diff = kernels_vs_plain(torch, dev, frames, algorithm)
             print(f"kernels vs plain {algorithm}, first two windows: "
                   f"max abs diff {diff}")
-        signal_chain_phase(torch, dev)
+        signal = signal_chain_phase(torch, dev)
+        with tempfile.TemporaryDirectory() as folder:
+            clips = {f"clip_{n}.mp4": (frames if seed == SEED else
+                                       make_clip(torch, dev, n, seed))
+                     for n, seed in FOLDER_CLIPS}
+            clips["profile_clip.mp4"] = frames[:PROFILE_FRAMES]
+            serve_clips(folder, clips)
+            files = [os.path.join(folder, f"clip_{n}.mp4")
+                     for n, _ in FOLDER_CLIPS]
+            base = {algorithm: folder_phase(torch, dev, card, files,
+                                            algorithm, bool(args.profile))
+                    for algorithm in ("farneback", "dis")}
+            if args.profile:
+                launch_rate(torch, dev, card)
+            checkpoint_phase(torch, dev, card, files[-1],
+                             base["farneback"][files[-1]])
+            profile_phase(torch, dev, card,
+                          os.path.join(folder, "profile_clip.mp4"), frames)
+        mesh_phase(torch, dev, card, frames)
+        sp_phase(torch, dev, card, signal)
         if args.profile:
             for algorithm in ("farneback", "dis"):
                 profile_window(torch, dev, frames, args.profile, algorithm)

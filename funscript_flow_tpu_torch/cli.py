@@ -51,10 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pair_batch", type=int, default=240,
                    help="Device micro-batch of frame pairs (default: 240)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="Use N devices (not yet ported; 0 = single device)")
+                   help="Use N devices: one clip's windows over N devices, "
+                        "or a folder's clips one per device (0 = single "
+                        "device)")
     p.add_argument("--clip_workers", type=int, default=0,
-                   help="Folder mode: concurrent in-flight clips (0/1 = "
-                        "sequential; more is not yet ported)")
+                   help="Folder mode: concurrent in-flight clips (0 = auto: "
+                        "one per --mesh device, else sequential; 1 = "
+                        "sequential)")
     p.add_argument("--dis_preset", choices=["ultrafast", "fast", "medium"],
                    default="fast",
                    help="DIS backend preset (cv2 equivalents; default: fast)")
@@ -62,9 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default="fast",
                    help="Native decode engine (the port decodes with OpenCV)")
     p.add_argument("--profile_dir", default="",
-                   help="Write a profiler trace here (not yet ported)")
+                   help="Write a torch.profiler chrome trace of each clip's "
+                        "analysis here")
     p.add_argument("--checkpoint", action="store_true",
-                   help="Intra-video resume sidecars (not yet ported)")
+                   help="Intra-video resume sidecars: a killed or cancelled "
+                        "clip resumes where it stopped")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where the flow program runs (default: cuda; "
                         "raises when CUDA is absent)")

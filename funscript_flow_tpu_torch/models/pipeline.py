@@ -30,7 +30,7 @@ from ..ops.reductions import (
 )
 
 __all__ = ["PipelineConfig", "rgb_to_gray_cv", "flow_chunk_program",
-           "FlowAnalyzer", "StreamingFlowAnalyzer"]
+           "upload_window", "FlowAnalyzer", "StreamingFlowAnalyzer"]
 
 ANALYSIS_SIZE = 256  # reference analyses at 256x256 gray (FunscriptFlow.pyw:1057)
 KEYS = ("dots", "cuts", "centers", "mean_mag", "val_pos")
@@ -127,6 +127,20 @@ def flow_chunk_program(frames: torch.Tensor, n_pairs: int,
     }
 
 
+def upload_window(views, need: int, device: torch.device) -> torch.Tensor:
+    """The frames ``views`` padded to ``need`` with the last one, on
+    ``device``: assembled in pinned host memory when the device is a GPU
+    and copied up without blocking, on the caller's current stream (so the
+    caching host allocator records the stream that reads the buffer)."""
+    cuda = device.type == "cuda"
+    host = torch.empty((need,) + views[0].shape, dtype=torch.uint8,
+                       pin_memory=cuda)
+    arr = host.numpy()
+    np.stack(views, out=arr[: len(views)])
+    arr[len(views):] = arr[len(views) - 1]  # pad with the last frame
+    return host.to(device, non_blocking=cuda)
+
+
 def _to_host(res: dict) -> dict:
     return {k: res[k].cpu().numpy() for k in KEYS}
 
@@ -187,7 +201,7 @@ class StreamingFlowAnalyzer:
 
     Each window is assembled in pinned host memory and uploaded with a
     non-blocking copy; the program is enqueued behind it and its outputs
-    stay on the card. One window stays pending: window k+1 is enqueued
+    stay on the card. One dispatch stays pending: window k+1 is enqueued
     before window k's ``[B]`` outputs are copied back, so the host decodes
     and assembles while the card computes.
 
@@ -195,14 +209,27 @@ class StreamingFlowAnalyzer:
     pass ``"cpu"``. ``n_pairs_total``: the video's known pair count (upper
     bound — a truncated container may deliver fewer, which flush() handles
     with real counts); knowing it enables the tail ramp-down.
+
+    ``mesh``: optional list of devices (``parallel.mesh.make_mesh``) — each
+    dispatch then covers ``n_devices * pair_batch`` pairs, one halo'd
+    window per device (``parallel.dp``), sent to the devices in turn from
+    the caller's thread. Per-pair results are bitwise identical to the
+    single-device path, because every emitted pair sees the same halo'd
+    frame window either way. Mutually exclusive with ``device``; a mesh
+    dispatches no ramp window and no tail ramp-down.
     """
 
     KEYS = KEYS
 
     def __init__(self, cfg: PipelineConfig | None = None, device=None,
-                 n_pairs_total: int | None = None):
+                 n_pairs_total: int | None = None, mesh=None):
+        if mesh is not None and device is not None:
+            raise ValueError("pass either a mesh or a device, not both")
         self.cfg = cfg or PipelineConfig()
-        self.device = default_device(device)
+        self.mesh = None if mesh is None else list(mesh)
+        self.device = self.mesh[0] if mesh is not None else \
+            default_device(device)
+        self._D = 1 if mesh is None else len(self.mesh)
         self._n_total = n_pairs_total
         self.radius = CENTER_SMOOTH_RADIUS
         self._buf: list = []   # pending frames
@@ -222,34 +249,43 @@ class StreamingFlowAnalyzer:
         return b
 
     def _dispatch(self, e: int, n_total: int | None) -> None:
-        """Upload the window of pairs [s, e) plus halo and enqueue the
-        program; its results stay on the device until _drain."""
-        s, r = self._s, self.radius
-        a = max(0, s - r)
-        b = e + r if n_total is None else min(n_total, e + r)
-        bucket = self._tail_bucket(e - s)
-        views = self._buf[a - self._base : b - self._base + 1]
-        res = self._upload_and_run(views, bucket, b - a)
-        self._pending.append((res, s - a, e - a))
+        """Upload the window of pairs [s, e) plus halo (one window per
+        device of a mesh) and enqueue the program; its results stay on the
+        device until _drain."""
+        s, r, B = self._s, self.radius, self.cfg.pair_batch
+        if self.mesh is None:
+            segs = [(s, e)]
+            bucket = self._tail_bucket(e - s)
+        else:  # device d takes pairs [s + d*B, s + (d+1)*B) of [s, e)
+            segs = [(min(s + d * B, e), min(s + (d + 1) * B, e))
+                    for d in range(self._D)]
+            bucket = B
+        windows, n_valid, spans = [], [], []
+        for sd, ed in segs:
+            if ed <= sd:
+                continue  # a mesh tail that leaves this device no pairs
+            a = max(0, sd - r)
+            b = ed + r if n_total is None else min(n_total, ed + r)
+            windows.append(self._buf[a - self._base : b - self._base + 1])
+            n_valid.append(b - a)
+            spans.append((sd - a, ed - a))
+        if self.mesh is None:
+            res = [flow_chunk_program(
+                upload_window(windows[0], bucket + 2 * r + 1, self.device),
+                n_valid[0], self.cfg)]
+        else:
+            # imported here: parallel.dp imports this module
+            from ..parallel.dp import analyze_windows_sharded
+
+            res = analyze_windows_sharded(windows, n_valid, self.cfg,
+                                          self.mesh[: len(windows)])
+        self.windows_dispatched += len(res)
+        self._pending.extend((rd, lo, hi) for rd, (lo, hi) in zip(res, spans))
         self._s = e
         drop = max(0, (self._s - r) - self._base)
         if drop:
             del self._buf[:drop]
             self._base += drop
-
-    def _upload_and_run(self, views: list, bucket: int, n_valid: int) -> dict:
-        """Assemble the padded window (in pinned memory when the device is
-        a GPU), copy it up without blocking, enqueue the program."""
-        need = bucket + 2 * self.radius + 1
-        cuda = self.device.type == "cuda"
-        host = torch.empty((need,) + views[0].shape, dtype=torch.uint8,
-                           pin_memory=cuda)
-        arr = host.numpy()
-        np.stack(views, out=arr[: len(views)])
-        arr[len(views):] = arr[len(views) - 1]  # pad with the last frame
-        frames = host.to(self.device, non_blocking=cuda)
-        self.windows_dispatched += 1
-        return flow_chunk_program(frames, n_valid, self.cfg)
 
     def _drain(self, keep: int) -> list:
         """Copy results back for pending windows down to ``keep``."""
@@ -303,16 +339,22 @@ class StreamingFlowAnalyzer:
         """Add decoded frames; returns a list of result dicts (maybe empty)."""
         self._buf.extend(frames)
         self._n_frames += len(frames)
-        B, r = self.cfg.pair_batch, self.radius
-        if (self._s == 0 and not self._pending
+        B, r = self.cfg.pair_batch * self._D, self.radius
+        if (self.mesh is None and self._s == 0 and not self._pending
                 and self._n_frames - 1 < B + r
                 and self._n_frames - 1 >= self.ramp_pairs + r):
             self._dispatch(self.ramp_pairs, None)
         while self._n_frames - 1 >= self._s + B + r:
             self._dispatch(self._s + B, None)
-        if self._n_total is not None:
+        if self.mesh is None and self._n_total is not None:
             self._ramp_down()
-        return self._drain(keep=1)
+        return self._drain(keep=self._D)
+
+    def drain_pending(self) -> list:
+        """Copy back every dispatched window's results without dispatching
+        new work (the checkpoint and cancel paths: the card has already
+        paid for these pairs, so the sidecar keeps them)."""
+        return self._drain(keep=0)
 
     def flush(self) -> list:
         """Video ended: emit remaining pairs with end-truncated smoothing
@@ -320,7 +362,7 @@ class StreamingFlowAnalyzer:
         arrived)."""
         n_total = max(self._n_frames - 1, 0)
         while self._s < n_total:
-            e = min(self._s + self.cfg.pair_batch, n_total)
+            e = min(self._s + self.cfg.pair_batch * self._D, n_total)
             self._dispatch(e, n_total)
         return self._drain(keep=0)
 
@@ -331,3 +373,8 @@ class StreamingFlowAnalyzer:
     @property
     def pairs_emitted(self) -> int:
         return self._s
+
+    @property
+    def n_devices(self) -> int:
+        """Devices each dispatch spans (1 unless a mesh shards windows)."""
+        return self._D

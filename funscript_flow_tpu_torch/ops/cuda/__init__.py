@@ -21,8 +21,10 @@ KERNELS = ("poly_exp", "warp_bilinear", "box_blur_solve", "sample_abs",
 
 
 def launch_counts() -> dict:
-    return {name: _build.launches.get(name, 0) for name in KERNELS}
+    with _build._count_lock:
+        return {name: _build.launches.get(name, 0) for name in KERNELS}
 
 
 def reset_launches() -> None:
-    _build.launches.clear()
+    with _build._count_lock:
+        _build.launches.clear()

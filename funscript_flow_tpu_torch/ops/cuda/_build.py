@@ -15,10 +15,12 @@ argmax downstream is winner-take-all).
 
 The launch path is lean, because at the small pyramid levels the host's
 cost of a call exceeds the kernel's: each C entry point is resolved once,
-when the library loads; a launch takes no lock, reads the raw handle of
-PyTorch's current stream of the tensor's device (so a CUDA graph being
-captured on that stream records the launch) and switches the device only
-when the tensor is not on the current one.
+when the library loads; a launch reads the raw handle of PyTorch's current
+stream of the tensor's device on every call (so a CUDA graph being captured
+on that stream records the launch, and each thread launches on its own
+current stream) and switches the device only when the tensor is not on the
+current one. The only lock a launch takes guards its count, which threads
+launching at once would otherwise lose.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["load", "check_tensor", "check_planes", "same_device", "launch",
-           "SOURCES", "NVCC_FLAGS"]
+           "count_launch", "SOURCES", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -69,8 +71,9 @@ _lib = None
 _fns: dict = {}  # C entry point name -> its ctypes function, once loaded
 build_info: dict = {}  # seconds, log, rebuilt — read by chip_smoke.py
 # kernel launches per wrapper entry point since the last reset
-# (ops.cuda.launch_counts / reset_launches)
+# (ops.cuda.launch_counts / reset_launches), under _count_lock
 launches: dict = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -205,4 +208,11 @@ def launch(kernel: str, fn_name: str, t: torch.Tensor, *args) -> None:
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: cudaError_t {rc}")
-    launches[kernel] = launches.get(kernel, 0) + 1
+    count_launch(kernel)
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to ``kernel``'s launch count (a read-modify-write, so under
+    a lock: clip workers launch from several threads at once)."""
+    with _count_lock:
+        launches[kernel] = launches.get(kernel, 0) + 1

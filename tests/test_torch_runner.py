@@ -124,14 +124,90 @@ def test_run_headless_folder(tmp_path):
     assert "Found 2 file(s)." in text and "Batch processing complete." in text
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh": 2}, {"clip_workers": 2},
-    {"checkpoint": True}, {"profile_dir": "prof"},
-    {"use_native_decode": "on"}])
+@pytest.mark.parametrize("kw", [{"use_native_decode": "on"}])
 def test_not_yet_ported_settings_raise(kw, tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         trun.process_video(str(tmp_path / "x.mp4"), Params(**kw),
                            lambda m: None, device="cpu")
+
+
+def test_profile_trace_writes_a_trace(tmp_path):
+    from funscript_flow_tpu_torch.utils.logging import profile_trace
+
+    with profile_trace(""):
+        pass  # no directory: no profiler, nothing written
+    d = tmp_path / "prof"
+    with profile_trace(str(d)):
+        torch.ones(64).cumsum(0)
+    (trace,) = d.iterdir()
+    assert trace.name.startswith("trace_") and trace.suffix == ".json"
+    assert "traceEvents" in json.loads(trace.read_text())
+
+
+def test_second_trace_fails_the_clip_as_in_jax(gray40, tmp_path):
+    """The profiler is process-wide in both packages: a clip whose trace
+    starts while another runs logs the error and returns True, with
+    jax.profiler's message, and does not touch the running trace."""
+    import jax
+
+    from funscript_flow_tpu_torch.utils.logging import profile_trace
+
+    outcome = {}
+    jax.profiler.start_trace(str(tmp_path / "jax_running"))
+    try:
+        logs = []
+        src = ListSource(gray40)
+        outcome["jax"] = (jrun.process_video(
+            str(tmp_path / "j.mp4"), JParams(overwrite=True, pair_batch=8,
+                                             profile_dir=str(tmp_path / "j")),
+            logs.append, preopened=(jdec.VideoMeta(40, 30.0, 64, 64), src)),
+            [m for m in logs if m.startswith("ERROR")], src.closed)
+    finally:
+        jax.profiler.stop_trace()
+    with profile_trace(str(tmp_path / "torch_running")):
+        logs = []
+        src = ListSource(gray40)
+        outcome["torch"] = (trun.process_video(
+            str(tmp_path / "t.mp4"), Params(overwrite=True, pair_batch=8,
+                                            profile_dir=str(tmp_path / "t")),
+            logs.append, preopened=(tdec.VideoMeta(40, 30.0, 64, 64), src),
+            device="cpu"), [m for m in logs if m.startswith("ERROR")],
+            src.closed)
+    assert outcome["torch"] == (True, [m.replace("j.mp4", "t.mp4") for m in
+                                       outcome["jax"][1]], True)
+    assert outcome["jax"][0] is True
+    assert "Only one profile may be run at a time" in outcome["jax"][1][0]
+    assert not (tmp_path / "t").exists()
+    assert len(list((tmp_path / "torch_running").iterdir())) == 1
+
+
+def test_backends_and_device_profile_on_cpu():
+    from funscript_flow_tpu_torch.utils.backends import (
+        get_available_backends, get_device_info)
+    from funscript_flow_tpu_torch.utils.devprof import device_profile
+
+    got = get_available_backends()
+    assert got == {"CUDA": torch.cuda.is_available(), "DIS": True,
+                   "CPU": True, "native_decode": False}
+    info = get_device_info()
+    if torch.cuda.is_available():
+        assert "cuda:0" in info
+    else:
+        assert "CUDA: not available" in info
+        with pytest.raises(RuntimeError, match="CUDA"):
+            device_profile(lambda: torch.ones(4))
+
+
+@pytest.mark.cuda
+def test_device_profile_on_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (device time)")
+    from funscript_flow_tpu_torch.utils.devprof import device_profile
+
+    x = torch.randn(2048, 2048, device="cuda")
+    ms = device_profile(torch.mm, x, x, runs=3, top=2, label="mm")
+    assert ms > 0
+    assert "mm: " in capsys.readouterr().out
 
 
 def test_compute_actions_host_chain(rng):
@@ -219,6 +295,42 @@ def test_cli_flags():
     assert args.device == "cuda" and args.backend == "CUDA"
     assert p.parse_args(["clip.mp4", "--device", "cpu"]).device == "cpu"
     assert tcli.main([]) == 2  # no input: help, no GUI in the port
+
+
+@pytest.mark.parametrize("flags", [
+    ["--clip_workers", "2", "--checkpoint"], ["--mesh", "2"],
+    ["--profile_dir", "PROF"]], ids=["workers-checkpoint", "mesh", "profile"])
+def test_cli_parallel_flags_on_a_folder(tmp_path, flags):
+    """The CLI runs a folder of two clips with each of the flags that
+    PRs before this one refused: worker- or device-tagged logs, no
+    sidecar left behind, one trace per clip."""
+    import cv2
+
+    d = tmp_path / "lib"
+    d.mkdir()
+    for i in range(2):
+        frames = ref.make_synthetic_frames(8, h=64, w=64, period=6, seed=i)
+        vw = cv2.VideoWriter(str(d / f"c{i}.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 30, (64, 64))
+        for f in frames:
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        vw.release()
+    prof = tmp_path / "prof"
+    flags = [str(prof) if f == "PROF" else f for f in flags]
+    log = tmp_path / "run.log"
+    rc = tcli.main([str(d), "--device", "cpu", "--backend", "DIS",
+                    "--pair_batch", "8", "--threads", "1", "--log", str(log),
+                    *flags])
+    assert rc == 0
+    assert sorted(p.name for p in d.iterdir()) == [
+        "c0.funscript", "c0.mp4", "c1.funscript", "c1.mp4"]
+    text = log.read_text()
+    if "--clip_workers" in flags:
+        assert "[w0] " in text and "[w1] " in text
+    if "--mesh" in flags:
+        assert "[dev0] " in text and "[dev1] " in text
+    if "--profile_dir" in flags:
+        assert len(list(prof.iterdir())) == 2
 
 
 def test_cli_runs_on_cpu(tmp_path):
