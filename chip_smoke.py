@@ -7,7 +7,13 @@ Run from the root of a checkout. Exits non-zero, with no ``ok`` line, when
 CUDA is unavailable, when the port's package is not beside this script, or
 when any phase fails. Phases, in order:
 
-1. the card's name and power limit (nvidia-smi);
+1. the card's name and power limit (nvidia-smi), then the decode probe
+   (``decode_probe``, one JSON line; installs nothing): ffmpeg/ffprobe on
+   PATH, libav's shared objects and headers, NVDEC's ``libnvcuvid.so``,
+   ``cv2``, ``torchvision.io`` and ``torchaudio.io``, and whether the
+   port's native pump builds (it is built here, with ``g++``), with which
+   engines and encoders. A pump that fails to build where libav's headers
+   are fails the run;
 2. build: the port's CUDA kernels are compiled from ``csrc/`` (nvcc);
 3. kernels: each kernel's wrapper against its plain PyTorch twin on the
    card, at B=252, bitwise (``torch.equal``): K1 (``poly_n`` 5 and 7),
@@ -48,6 +54,16 @@ when any phase fails. Phases, in order:
 8. device signal chain: a one-hour signal (108,000 samples at 30 fps)
    through ``compute_actions`` with ``signal_backend="auto"`` on the card,
    checked against the host chain (within 0.5 of its 0-100 curve);
+8b. file, where the pump builds (else one line naming what the machine
+   lacks, and no file is decoded another way): a ``FILE_SIZE`` clip of
+   ``FRAMES`` frames of the zoom texture at 30 fps, encoded by the port's
+   encoder (h264 where libx264 opens, else mpeg4), through
+   ``process_video(use_native_decode="on")``, cold and warm: the pump's
+   fast engine decodes it, 8/12/12 launches per window, the funscript
+   within 2 ``pos`` (same ``at``) of the same pump frames through
+   ``preopened``; pairs/s with decode included, the stage timers and the
+   decode rate alone. Then the BatchWorker phase (9b) on three encoded
+   256x256 files of ``FOLDER_CLIPS``' lengths;
 9. folder: three clips (``FOLDER_CLIPS``: 900, 1200 and 1800 frames)
    through the runner's folder workers (``_run_videos_parallel``) on
    ``cuda:0``, with 1 and with 3 workers, for Farnebäck and for DIS
@@ -56,6 +72,11 @@ when any phase fails. Phases, in order:
    the folder's pairs/s per run. The card has no OpenCV, so the clips are
    placeholder files that a replaced ``runner._open_video`` serves from
    memory, from any ``start_sample``;
+9b. BatchWorker (here, on the same placeholder clips, where the pump does
+   not build): the three clips through ``worker.BatchWorker`` on the card,
+   Farnebäck and then DIS: all three generated, the run's log file
+   written, progress at 100, each funscript byte-identical to a direct
+   ``process_video`` of the clip, launches per window as in 4 and 6;
 10. checkpoint: the 1800-frame clip with ``checkpoint=True`` and a
    sidecar every ``CKPT_EVERY_PAIRS`` pairs, cancelled after the runner's
    third poll, then resumed: the resume is logged, the funscript is the
@@ -77,9 +98,10 @@ when any phase fails. Phases, in order:
    launch rate of small eager ops from 1 and from 3 threads;
 14. one JSON line listing the kernels, then the contract line.
 
-Every line of phases 9-12 ends with the card's name and power limit.
+Every line of phases 8b-12 ends with the card's name and power limit.
 
-Imports nothing of JAX; data is made from ``SEED`` on the card.
+Imports nothing of JAX; data is made from ``SEED`` on the card (the file
+phases encode it into files first).
 """
 
 from __future__ import annotations
@@ -130,6 +152,7 @@ FOLDER_WORKERS = (1, 3)
 CKPT_EVERY_PAIRS = 240
 PROFILE_FRAMES = 300
 SP_SHARDS = 4
+FILE_SIZE = (720, 1280)   # (h, w) of the file phase's clip
 
 KERNEL_META = {
     "poly_exp": {
@@ -1290,6 +1313,262 @@ def sp_phase(torch, dev, card, signal) -> None:
           f"sp: off its references: {e2}, {eh}, {er}")
 
 
+LIB_DIRS = ("/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/lib",
+            "/usr/local/lib", "/lib/x86_64-linux-gnu", "/usr/local/cuda/lib64",
+            "/usr/lib/aarch64-linux-gnu")
+LIBAV = ("avcodec", "avformat", "swscale", "avutil")
+
+
+def _shared_objects(name: str) -> list:
+    """The files ``lib<name>.so*`` in ``LIB_DIRS`` and what the dynamic
+    loader's cache names for ``name``."""
+    import ctypes.util
+    import glob
+
+    found = sorted({os.path.realpath(p) for d in LIB_DIRS
+                    for p in glob.glob(os.path.join(d, f"lib{name}.so*"))})
+    cached = ctypes.util.find_library(name)
+    return found + ([f"ldconfig: {cached}"] if cached else [])
+
+
+def decode_probe() -> dict:
+    """What the machine offers to decode a video file, found without
+    installing anything: ffmpeg/ffprobe on PATH, libav's shared objects and
+    headers, NVDEC's ``libnvcuvid.so``, ``cv2``, ``torchvision.io`` and
+    ``torchaudio.io``, a C++ compiler, and whether the port's native pump
+    built (and with which engines, and which encoders it can open)."""
+    import importlib.util
+    import shutil
+
+    from funscript_flow_tpu_torch import runtime
+    from funscript_flow_tpu_torch.runtime import _build as rt_build
+
+    probe = {"ffmpeg": shutil.which("ffmpeg"),
+             "ffprobe": shutil.which("ffprobe"),
+             "libav_so": {n: _shared_objects(n) for n in LIBAV},
+             "libav_headers": rt_build.find_libav(),
+             "opencv_headers": rt_build.find_opencv(),
+             "nvcuvid_so": _shared_objects("nvcuvid"),
+             "cxx": shutil.which(rt_build.CXX)}
+    for mod in ("cv2", "torchvision", "torchaudio", "av"):
+        probe[mod] = importlib.util.find_spec(mod) is not None
+    if probe["cv2"]:
+        import glob
+
+        try:
+            import cv2
+
+            ffmpeg = [ln.strip() for ln in cv2.getBuildInformation()
+                      .splitlines() if "FFMPEG" in ln]
+            site = os.path.dirname(os.path.dirname(cv2.__file__))
+            probe["cv2"] = {
+                "version": cv2.__version__, "ffmpeg": ffmpeg,
+                "bundled_libav": sorted(os.path.basename(p) for p in
+                                        glob.glob(os.path.join(
+                                            site, "*.libs", "libav*")))}
+        except Exception as e:  # report whatever stops the import
+            probe["cv2"] = f"import fails: {type(e).__name__}: {e}"[:200]
+    for mod, attr in (("torchvision.io", "VideoReader"),
+                      ("torchaudio.io", "StreamReader")):
+        if probe[mod.split(".")[0]]:
+            try:
+                m = __import__(mod, fromlist=[attr])
+                probe[mod] = f"imports; {attr}: {hasattr(m, attr)}"
+            except Exception as e:  # report whatever stops the import
+                probe[mod] = f"import fails: {type(e).__name__}: {e}"[:200]
+    t0 = time.perf_counter()
+    built = runtime.available()
+    probe["pump"] = {
+        "built": built, "seconds": round(time.perf_counter() - t0, 3),
+        "reason": runtime.unavailable_reason(),
+        "engines": (["fast"] + (["exact"] if runtime.has_exact() else [])
+                    if built else []),
+        "library": runtime.library_path(),
+        "encoders": ([c for c in ("libx264", "mpeg4")
+                      if runtime.encoder_available(c)] if built else [])}
+    return probe
+
+
+def pump_missing(probe: dict) -> str:
+    """What the machine lacks to build the native pump, in one line."""
+    return (f"file phase skipped: the native pump does not build here "
+            f"({probe['pump']['reason'].splitlines()[0]}); ffmpeg "
+            f"{'on PATH' if probe['ffmpeg'] else 'not on PATH'}, libav "
+            f"shared objects {'found' if any(probe['libav_so'].values()) else 'none'}"
+            f", C++ compiler {probe['cxx'] or 'none'}")
+
+
+def write_zoom_clip(torch, dev, path: str, n: int, h: int, w: int,
+                    seed: int = SEED) -> str:
+    """Encode ``n`` frames of ``make_clip``'s zoomed texture at ``h``x``w``
+    (the texture's central 256x256 view stretched to the frame, so the
+    pump's 256x256 analysis frames show ``make_clip``'s motion) with the
+    port's encoder: ``libx264`` where it opens, else ``mpeg4``. Returns the
+    codec."""
+    import torch.nn.functional as F
+
+    from funscript_flow_tpu_torch import runtime
+
+    codec = "libx264" if runtime.encoder_available("libx264") else "mpeg4"
+    rng = np.random.default_rng(seed)
+    tex = torch.from_numpy(rng.random((1, 1, 512, 512), dtype=np.float32)).to(dev)
+    r = torch.arange(-9, 10, dtype=torch.float32, device=dev)
+    k = torch.exp(-(r * r) / (2 * 3.0 ** 2))
+    k = k / k.sum()
+    tex = F.conv2d(F.pad(tex, (9, 9, 0, 0), mode="reflect"), k.view(1, 1, 1, -1))
+    tex = F.conv2d(F.pad(tex, (0, 0, 9, 9), mode="reflect"), k.view(1, 1, -1, 1))
+    tex = ((tex - tex.mean()) / tex.std() * 40 + 128).clamp(0, 255)
+    px = (torch.arange(w, dtype=torch.float32, device=dev) - (w - 1) / 2) * 256 / w
+    py = (torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) / 2) * 256 / h
+    with runtime.VideoEncoder(path, w, h, 30.0, codec=codec) as enc:
+        for s0 in range(0, n, 25):
+            t = torch.arange(s0, min(n, s0 + 25), dtype=torch.float32,
+                             device=dev)
+            s = 1 + 0.06 * torch.sin(2 * np.pi * t / 30)
+            X = 255.5 + px[None, None, :] / s[:, None, None]
+            Y = 255.5 + py[None, :, None] / s[:, None, None]
+            grid = torch.stack([(X / 511 * 2 - 1).expand(-1, h, w),
+                                (Y / 511 * 2 - 1).expand(-1, h, w)], dim=-1)
+            img = F.grid_sample(tex.expand(len(t), -1, -1, -1), grid,
+                                mode="bilinear", align_corners=True)
+            gray = img[:, 0].round().clamp(0, 255).to(torch.uint8)
+            for f in gray.unsqueeze(-1).expand(-1, -1, -1, 3).contiguous() \
+                    .cpu().numpy():
+                enc.write(f)
+    return codec
+
+
+def file_phase(torch, dev, card, n: int = FRAMES, size=FILE_SIZE) -> dict:
+    """A ``size`` (h, w) clip of ``n`` frames at 30 fps, encoded by the
+    port's encoder, through ``process_video(use_native_decode="on")`` on
+    ``dev``, cold and then warm: the pump's fast engine decodes it, each
+    window launches the Farnebäck kernels 8/12/12 times, and the funscript
+    keeps its contract and is within 2 ``pos`` (the same ``at``) of the
+    same pump frames pushed through ``preopened``. Prints pairs/s with
+    decode included, the stage timers and the decode rate alone."""
+    from funscript_flow_tpu_torch import runtime
+    from funscript_flow_tpu_torch.io.funscript import load_funscript
+    from funscript_flow_tpu_torch.ops import cuda as kcuda
+    from funscript_flow_tpu_torch.runner import process_video
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "file_clip.mp4")
+        t0 = time.perf_counter()
+        codec = write_zoom_clip(torch, dev, video, n, *size)
+        enc_s = time.perf_counter() - t0
+        print(f"file: {n} frames {size[1]}x{size[0]} at 30 fps encoded with "
+              f"{codec} in {enc_s:.3f} s, {os.path.getsize(video)} bytes "
+              f"({card})")
+        for run in ("cold", "warm"):
+            logs = []
+            kcuda.reset_launches()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            err = process_video(video, Params(overwrite=True,
+                                              use_native_decode="on"),
+                                logs.append, device=str(dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = kcuda.launch_counts()
+            check(not err, "file: process_video failed:\n" + "\n".join(logs))
+            engine = [m for m in logs if m.startswith("Decode: ")]
+            check(len(engine) == 1 and engine[0].startswith(
+                "Decode: native pump, fast engine"),
+                f"file: not the pump's fast engine: {engine}")
+            windows, pairs = _read_log(logs)
+            if dev.type == "cuda":
+                check_launches(counts, windows, "farneback")
+            timers = next(m for m in logs if m.startswith("Stage timers"))
+            got = load_funscript(os.path.join(tmp, "file_clip.funscript"))
+            gap = check_funscript(got)
+            print(f"file ({run} run): {pairs} pairs in {windows} windows, "
+                  f"wall {wall:.3f} s, {pairs / wall:.1f} pairs/s with decode "
+                  f"included; {engine[0]} {timers}; launches {counts}; "
+                  f"median keyframe gap {gap:.1f} ms ({card})")
+        t0 = time.perf_counter()
+        src = runtime.NativeFrameSource(video, None, False, gray=True,
+                                        fast=True)
+        meta = src.meta
+        check(src.is_fast, "file: the pump did not take the fast engine")
+        frames = []
+        while True:
+            batch = src.get_batch(256)
+            if not batch:
+                break
+            frames.extend(f.copy() for f in batch)
+        src.close()
+        dec_s = time.perf_counter() - t0
+    print(f"file: decode alone (one pump, fast engine): {len(frames)} frames "
+          f"in {dec_s:.3f} s, {len(frames) / dec_s:.1f} frames/s ({card})")
+    want = main_path(torch, dev, frames, Params(overwrite=True),
+                     fps=meta.fps)["funscript"]
+    a, b = got["actions"], want["actions"]
+    check([x["at"] for x in a] == [x["at"] for x in b],
+          "file: 'at' differs from the preopened run of the pump's frames")
+    dpos = max((abs(x["pos"] - y["pos"]) for x, y in zip(a, b)), default=0)
+    check(dpos <= 2, f"file: pos differs by {dpos} from the preopened run")
+    print(f"file: {len(a)} actions, same 'at' as the pump's frames through "
+          f"preopened, max |pos delta| {dpos} (tol 2) ({card})")
+    return {"pairs": pairs, "wall": wall}
+
+
+def batch_worker_phase(torch, dev, card, files, algorithm) -> None:
+    """The clips through ``BatchWorker`` on ``dev``: every clip generated,
+    the log file written, progress at 100, and each funscript
+    byte-identical to a direct ``process_video`` of the clip."""
+    from funscript_flow_tpu_torch.io.funscript import funscript_path
+    from funscript_flow_tpu_torch.ops import cuda as kcuda
+    from funscript_flow_tpu_torch.runner import process_video
+    from funscript_flow_tpu_torch.utils.params import Params
+    from funscript_flow_tpu_torch.worker import BatchWorker
+
+    params = Params(overwrite=True,
+                    backend="DIS" if algorithm == "dis" else "CUDA")
+    with tempfile.TemporaryDirectory() as logs_dir:
+        progress, logs, done = [], [], []
+        kcuda.reset_launches()
+        t0 = time.perf_counter()
+        w = BatchWorker(files, params, on_progress=progress.append,
+                        on_log=logs.append,
+                        on_finished=lambda e, g: done.append((e, g)),
+                        logs_dir=logs_dir, device=str(dev))
+        w.start()
+        w.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = kcuda.launch_counts()
+        check(not w.is_alive() and done, "batch worker: did not finish")
+        err, generated = done[0]
+        check(not err, "batch worker: an error:\n" + "\n".join(logs))
+        check(sorted(g[0] for g in generated) == sorted(files),
+              f"batch worker: generated {generated}")
+        check(progress and progress[-1] == 100,
+              f"batch worker: progress ended at {progress[-1:]}")
+        log_text = open(w.log_path).read() if w.log_path else ""
+        check("Batch processing complete." in log_text,
+              "batch worker: the log file is missing or incomplete")
+    windows, pairs = _read_log(logs)
+    if dev.type == "cuda":
+        check_launches(counts, windows, algorithm)
+    outs = {f: open(funscript_path(f), "rb").read() for f in files}
+    for f in files:
+        os.remove(funscript_path(f))
+        check(not process_video(f, params, lambda m: None, device=str(dev)),
+              f"batch worker: direct process_video of {f} failed")
+        check(open(funscript_path(f), "rb").read() == outs[f],
+              f"batch worker {algorithm}: {os.path.basename(f)} differs "
+              f"from a direct process_video")
+    engine = sorted({m.split("Decode: ", 1)[1].rstrip(".") for m in logs
+                     if "Decode: " in m}) or ["the runner's replaced opener"]
+    print(f"batch worker {algorithm} on {dev}: {len(files)} clips generated, "
+          f"{pairs} pairs in {windows} windows, wall {wall:.3f} s, "
+          f"{pairs / wall:.1f} pairs/s, progress "
+          f"{progress[-1]}, log file written; decode: {', '.join(engine)}; "
+          f"funscripts byte-identical to direct process_video ({card})")
+
+
 def print_build(info: dict) -> None:
     """The build's time and ptxas's resource lines, one per kernel
     instance (its template arguments decoded from the mangled name)."""
@@ -1336,6 +1615,11 @@ def main(argv=None) -> int:
         card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
         check(smi.returncode == 0 and card, f"nvidia-smi failed: {smi.stderr}")
         print(card)
+        probe = decode_probe()
+        print("decode probe: " + json.dumps(probe))
+        check(probe["pump"]["built"] or not probe["libav_headers"],
+              "the native pump failed to build where libav's headers are: "
+              + probe["pump"]["reason"])
 
         _build.load()
         print_build(_build.build_info)
@@ -1350,6 +1634,20 @@ def main(argv=None) -> int:
             print(f"kernels vs plain {algorithm}, first two windows: "
                   f"max abs diff {diff}")
         signal = signal_chain_phase(torch, dev)
+        if probe["pump"]["built"]:
+            file_phase(torch, dev, card)
+            with tempfile.TemporaryDirectory() as folder:
+                files = [os.path.join(folder, f"bw_{n}.mp4")
+                         for n, _ in FOLDER_CLIPS]
+                for f, (n, seed) in zip(files, FOLDER_CLIPS):
+                    write_zoom_clip(torch, dev, f, n, 256, 256, seed)
+                for algorithm in ("farneback", "dis"):
+                    batch_worker_phase(torch, dev, card, files, algorithm)
+        else:
+            print(pump_missing(probe))
+        from funscript_flow_tpu_torch import runner
+
+        open_video = runner._open_video
         with tempfile.TemporaryDirectory() as folder:
             clips = {f"clip_{n}.mp4": (frames if seed == SEED else
                                        make_clip(torch, dev, n, seed))
@@ -1361,12 +1659,16 @@ def main(argv=None) -> int:
             base = {algorithm: folder_phase(torch, dev, card, files,
                                             algorithm, bool(args.profile))
                     for algorithm in ("farneback", "dis")}
+            if not probe["pump"]["built"]:
+                for algorithm in ("farneback", "dis"):
+                    batch_worker_phase(torch, dev, card, files, algorithm)
             if args.profile:
                 launch_rate(torch, dev, card)
             checkpoint_phase(torch, dev, card, files[-1],
                              base["farneback"][files[-1]])
             profile_phase(torch, dev, card,
                           os.path.join(folder, "profile_clip.mp4"), frames)
+        runner._open_video = open_video
         mesh_phase(torch, dev, card, frames)
         sp_phase(torch, dev, card, signal)
         if args.profile:

@@ -12,12 +12,17 @@ counterpart is easy to find:
   ops/       Farnebäck flow, reductions, signal chains (host and device),
              cuda/ kernel wrappers
   models/    DIS flow, the per-window flow program and its streaming driver
-  utils/     params, logging, strings
+  runtime/   native C++ decode pump and clip encoder (libav; built with
+             the system compiler at first use)
+  utils/     params, config, logging, strings
   runner     per-video driver + headless folder runner
-  cli        headless entry point
+  worker     background batch worker (the GUI's)
+  gui/       tkinter desktop GUI and preview
+  cli        headless entry point (no input: the GUI)
 
-The port imports torch, numpy and the standard library only: nothing of JAX
-and nothing of the JAX package. Every entry point runs on ``cuda`` unless
+The port imports torch, numpy and the standard library only (cv2 and
+tkinter inside the functions that need them): nothing of JAX and nothing of
+the JAX package. Every entry point runs on ``cuda`` unless
 the caller asks for ``"cpu"``; there is no silent fallback.
 """
 

@@ -2,8 +2,10 @@
 
 ``python -m funscript_flow_tpu_torch <input> [flags]`` mirrors
 FunscriptFlow.pyw:2641-2666 and the JAX package's CLI, without its TPU
-knobs (``--use_pallas``, ``--warp_backend``) and with ``--device``. Decoding
-a video file needs OpenCV (``cv2``).
+knobs (``--use_pallas``, ``--warp_backend``) and with ``--device``. A video
+file decodes through the native pump (``runtime``, libav) where it builds,
+else through OpenCV (``cv2``). With no input it opens the GUI
+(``gui.app``), as the reference and the JAX package do.
 
 As in the JAX package, keyframe reduction is on by default and
 ``--disable_keyframe_reduction`` turns it off (the reference's flag was
@@ -63,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DIS backend preset (cv2 equivalents; default: fast)")
     p.add_argument("--decode_quality", choices=["fast", "exact"],
                    default="fast",
-                   help="Native decode engine (the port decodes with OpenCV)")
+                   help="fast = libav lowres+luma-only decode in the native "
+                        "pump; exact = cv2-bit-identical decode")
     p.add_argument("--profile_dir", default="",
                    help="Write a torch.profiler chrome trace of each clip's "
                         "analysis here")
@@ -78,11 +81,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     if not args.input:
-        parser.print_help()  # the GUI is not part of the port yet
-        return 2
+        # no input -> GUI, like the reference (:2665-2668); tkinter-based
+        from .gui.app import launch
+
+        return launch()
     params = Params(
         threads=args.threads,
         detrend_window=args.detrend_window,

@@ -29,8 +29,8 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["sidecar_path", "fingerprint", "flow_regime", "save", "load",
-           "clear", "CHECKPOINT_EVERY_PAIRS"]
+__all__ = ["sidecar_path", "fingerprint", "flow_regime", "default_engine",
+           "save", "load", "clear", "CHECKPOINT_EVERY_PAIRS"]
 
 #: flush cadence in dispatched pairs (~2.3 min of 30 fps samples)
 CHECKPOINT_EVERY_PAIRS = 4096
@@ -50,17 +50,48 @@ def flow_regime(device) -> str:
     return f"torch/{dev.type}/{'kernels' if dev.type == 'cuda' else 'plain'}"
 
 
-def fingerprint(video_path: str, meta, params, device) -> str:
+def default_engine(params, meta=None) -> str:
+    """The decode engine class without an open source: ``fast`` when fast
+    decode is asked for, native decode is not off and the native pump
+    builds, else ``exact``. The runner passes the open source's engine
+    (``is_fast``) instead: only the source knows whether the codec took the
+    fast engine.
+
+    ``meta`` (when given) also applies the runner's routing of clips
+    shorter than the rolling-norm window to the exact engine
+    (``io.decode.effective_decode_quality``)."""
+    if str(params.decode_quality) != "fast":
+        return "exact"
+    if meta is not None:
+        from .decode import effective_decode_quality
+
+        if effective_decode_quality(meta, params) != "fast":
+            return "exact"
+    if str(params.use_native_decode) == "off":
+        return "exact"
+    from .. import runtime
+
+    return "fast" if runtime.available() else "exact"
+
+
+def fingerprint(video_path: str, meta, params, device,
+                engine: str | None = None) -> str:
     """Identity of (video, analysis settings, numeric regime): a resumed
     run must be computing the same per-pair stream.
 
     ``pair_batch``/``mesh``/``threads`` are deliberately absent — per-pair
     results are invariant to them (batch/bucket/mesh/shard invariance,
-    tested). ``engine`` is always ``exact``: the port decodes only through
-    OpenCV. ``flow`` is :func:`flow_regime` in place of the JAX package's
-    resolved TPU numerics, so a sidecar written by the JAX package, or by
-    the port on another device type or route, is never resumed.
+    tested). ``engine`` is the decode engine class that produced the
+    frames: ``fast`` (the native pump's libav engine) or ``exact`` (the
+    native exact engine and the cv2 path, bit-identical, so one token);
+    ``None`` takes :func:`default_engine`. The two engines' frames differ,
+    so a sidecar written under one never resumes under the other; nor
+    under another ``FF_PUMP_SLF`` loop-filter override of the fast engine.
+    ``flow`` is :func:`flow_regime` in place of the JAX package's resolved
+    TPU numerics, so a sidecar written by the JAX package, or by the port
+    on another device type or route, is never resumed.
     """
+    eng = str(engine) if engine is not None else default_engine(params, meta)
     st = os.stat(video_path)
     return json.dumps({
         "size": st.st_size,
@@ -73,7 +104,9 @@ def fingerprint(video_path: str, meta, params, device) -> str:
         "backend": str(params.backend),
         "dis_preset": str(params.dis_preset),
         "cut_threshold": float(params.cut_threshold),
-        "engine": "exact",
+        "engine": eng,
+        "slf": ((os.environ.get("FF_PUMP_SLF") or "auto")
+                if eng == "fast" else "n/a"),
         "flow": flow_regime(device),
     }, sort_keys=True)
 

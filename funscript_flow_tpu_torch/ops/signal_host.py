@@ -2,9 +2,10 @@
 
 This module is a from-scratch reimplementation of the 1-D signal chain the
 reference inlines in its per-video driver (reference: FunscriptFlow.pyw
-:1266-1397). The PyTorch port's own copy: the port runs its whole signal
-chain here (there is no device chain in the port yet), and this module is
-also the documentation of the output contract, including reference quirks
+:1266-1397). The PyTorch port's own copy: the port runs the signal chain
+here below 65,536 samples (the runner's ``auto`` routing; longer clean
+signals take the device chain, ``ops.signal``), and this module is also
+the documentation of the output contract, including reference quirks
 matched bit-for-bit (they are behavior, not defects we are licensed to
 change):
 

@@ -10,8 +10,14 @@ for long clips) emits the funscript (reference FunscriptFlow.pyw:1094-1404,
 Failure semantics match the reference: per-video isolation — an analysis
 error logs and moves on, aggregated into the returned ``error_occurred``
 flag (:1115-1125); cancel is polled between device batches (:1146-1148).
-A configuration this port cannot run yet (see :func:`check_supported`) and
-a missing CUDA device raise instead: they are not per-video failures.
+A missing CUDA device raises instead: it is not a per-video failure.
+
+Decode (:func:`_open_video`, the JAX package's engine choice): the native
+pump (``runtime``) when ``use_native_decode`` is ``auto`` or ``on`` and it
+builds, with its libav fast engine under ``decode_quality="fast"``; else
+OpenCV (``io.decode``). ``on`` without a pump fails the clip with an
+``ERROR`` line naming the cause; it never decodes through OpenCV. Each
+clip's log names the engine that decoded it.
 
 Beyond one clip on one device: ``--mesh N`` shards one clip's windows over
 N devices (``parallel.dp``) and its long signal over the same devices
@@ -49,7 +55,7 @@ from .utils.params import Params
 from .utils.strings import STRINGS
 
 __all__ = ["process_video", "run_headless", "compute_actions",
-           "check_supported", "resolve_clip_workers",
+           "resolve_clip_workers", "NativeDecodeUnavailable",
            "AUTO_DEVICE_MIN_SAMPLES"]
 
 # ~36 min of 30 fps samples: below this the exact float64 host chain is
@@ -57,13 +63,8 @@ __all__ = ["process_video", "run_headless", "compute_actions",
 AUTO_DEVICE_MIN_SAMPLES = 65536
 
 
-def check_supported(params: Params) -> None:
-    """Raise NotImplementedError for a setting whose code is not ported yet,
-    naming its ROADMAP item."""
-    if params.use_native_decode == "on":
-        raise NotImplementedError(
-            "not yet ported (ROADMAP.md, queue 1): use_native_decode=on "
-            "(the native decode runtime)")
+class NativeDecodeUnavailable(RuntimeError):
+    """``use_native_decode="on"`` and the native pump cannot be built."""
 
 
 def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
@@ -132,14 +133,99 @@ def _decode_shards(params: Params) -> int:
     return min(params.threads, os.cpu_count() or 1)
 
 
+def _detect_native(params: Params):
+    """The native runtime module when ``use_native_decode`` asks for it
+    and it builds, else None; raises :class:`NativeDecodeUnavailable`
+    (naming the cause) when it is ``on`` and the pump cannot be built."""
+    if params.use_native_decode == "off":
+        return None
+    from . import runtime
+
+    if runtime.available():
+        return runtime
+    if params.use_native_decode == "on":
+        raise NativeDecodeUnavailable(
+            "native decode requested but unavailable: "
+            + runtime.unavailable_reason())
+    return None
+
+
+def _open_error(video_path, e: Exception) -> str:
+    """The clip's ERROR line for a failed open."""
+    if isinstance(e, NativeDecodeUnavailable):
+        return f"ERROR: {e}"
+    return f"ERROR: Unable to open video at {video_path}: {e}"
+
+
+def _decode_note(source, params: Params):
+    """The log line naming the engine that decodes ``source`` and, for
+    OpenCV, why the native pump was not taken (None for a caller's own
+    frame source)."""
+    engine = getattr(source, "decode_engine", None)
+    if engine is None:
+        return None
+    if not engine.startswith("OpenCV"):
+        return f"Decode: {engine}."
+    if params.use_native_decode == "off":
+        why = "use_native_decode=off"
+    else:
+        from . import runtime
+
+        why = runtime.unavailable_reason()
+    return f"Decode: {engine}; native pump not taken: {why}"
+
+
 def _open_video(video_path, params: Params, cancel_flag, start_sample=0):
-    """(meta, source): probe, then a prefetching decode source — sharded
-    over ``params.threads`` workers when more than one. ``start_sample`` > 0
+    """(meta, source): one decode source for a clip, sharded over
+    ``params.threads`` workers when more than one; ``start_sample`` > 0
     resumes mid-video (the checkpoint path) with one sequential source.
-    Every source the runner reads is opened here."""
-    meta = iodec.probe(video_path)
+    Every source the runner reads is opened here.
+
+    With the native pump (JAX ``runner.py:186-259``) the common path lets
+    it self-probe, so one open gives both the metadata and the stream; a
+    clip shorter than the rolling-norm window is reopened on the exact
+    engine (``io.decode.effective_decode_quality``). Sharded and resumed
+    native decode probe with the pump too (a short open that decodes
+    nothing), so decoding a file never needs OpenCV where the pump builds.
+    """
+    native = _detect_native(params)
+    fast = params.decode_quality == "fast"
+
+    def native_source(meta, start=0, count=-1, depth=params.batch_size,
+                      fast=fast):
+        return native.NativeFrameSource(
+            video_path, meta, params.vr_mode, depth=depth,
+            cancel_flag=cancel_flag, start_sample=start, max_samples=count,
+            gray=True, fast=fast)
+
+    shards = _decode_shards(params)
+    if native is not None and shards <= 1 and start_sample == 0:
+        src = native_source(None)
+        try:
+            meta = src.meta
+            if src.is_fast and \
+                    iodec.effective_decode_quality(meta, params) == "exact":
+                # a clip shorter than the norm window: reopen on the exact
+                # engine (seconds long, so the reopen is cheap)
+                src.close()
+                src = native_source(meta, fast=False)
+        except BaseException:
+            src.close()
+            raise
+        return meta, src
+    if native is not None:
+        probe = native_source(None, count=0, depth=1)
+        try:
+            meta = probe.meta
+        finally:
+            probe.close()
+    else:
+        meta = iodec.probe(video_path)
+    fast = iodec.effective_decode_quality(meta, params) == "fast"
 
     def factory(start, count, depth):
+        if native is not None:
+            return native_source(meta, start, count, depth, fast)
         return iodec.PrefetchingFrameSource(
             video_path, meta, params.vr_mode, depth=depth,
             cancel_flag=cancel_flag, start_sample=start, max_samples=count,
@@ -148,7 +234,6 @@ def _open_video(video_path, params: Params, cancel_flag, start_sample=0):
 
     if start_sample > 0:
         return meta, factory(start_sample, -1, params.batch_size)
-    shards = _decode_shards(params)
     if shards > 1:
         return meta, iodec.ShardedFrameSource(
             factory, len(meta.sampled_indices), shards,
@@ -179,7 +264,6 @@ def process_video(video_path: str, params: Params, log_func,
     type (``parallel.mesh.make_mesh``).
     """
     try:
-        check_supported(params)
         dev = default_device(device)
         mesh = make_mesh(params.mesh, dev) if params.mesh > 1 else None
     except Exception:
@@ -203,8 +287,11 @@ def process_video(video_path: str, params: Params, log_func,
         else:
             meta, source = _open_video(video_path, params, cancel_flag)
     except Exception as e:
-        log_func(f"ERROR: Unable to open video at {video_path}: {e}")
+        log_func(_open_error(video_path, e))
         return True
+    note = _decode_note(source, params)
+    if note:
+        log_func(note)
 
     n_samples = len(meta.sampled_indices)
     log_func(
@@ -241,7 +328,12 @@ def process_video(video_path: str, params: Params, log_func,
     if params.checkpoint:
         ckpt_path = ckpt_mod.sidecar_path(output_path)
         try:
-            ckpt_fp = ckpt_mod.fingerprint(video_path, meta, params, dev)
+            # the engine of the open source, not of the params: only the
+            # source knows whether the codec took the fast engine, and the
+            # two engines' frames differ
+            engine = "fast" if getattr(source, "is_fast", False) else "exact"
+            ckpt_fp = ckpt_mod.fingerprint(video_path, meta, params, dev,
+                                           engine=engine)
         except OSError:
             ckpt_path = None
         loaded = ckpt_mod.load(ckpt_path, ckpt_fp) if ckpt_path else None
@@ -261,7 +353,7 @@ def process_video(video_path: str, params: Params, log_func,
                 _, source = _open_video(video_path, params, cancel_flag,
                                         start_sample=resume_base)
             except Exception as e:
-                log_func(f"ERROR: Unable to open video at {video_path}: {e}")
+                log_func(_open_error(video_path, e))
                 return True
     analyzer = StreamingFlowAnalyzer(
         cfg, device=None if mesh is not None else dev, mesh=mesh,
@@ -380,11 +472,16 @@ def resolve_clip_workers(params: Params, n_files: int) -> tuple:
     """(n_workers, n_devices) for a folder run: how many clips are in
     flight at once, over how many devices. ``clip_workers=0`` (auto) keeps
     one clip per device when a mesh is configured, and is sequential on
-    one device: the JAX package runs several clips on one chip only with
-    its native decode pump, whose C++ decode fills another clip's host
-    gaps without the GIL, and the port has no native pump yet (ROADMAP
-    queue 1 item 9). An explicit ``clip_workers=N`` gives N clips in
-    flight; counts clamp to the file count."""
+    one device, with or without the native pump. The JAX package runs
+    ``min(cores + 1, 4)`` clips on one chip when it has the pump, whose C++
+    decode fills another clip's host gaps without the GIL. On an H100,
+    though, 3 clip workers ran a folder at 0.43-0.61x of one worker's pace
+    with Farnebäck and at 0.31-0.58x with DIS (PERF.md section 6, the
+    folder workers' finding): the flow's launches are issued by the host
+    under the interpreter lock, and 3 threads issued no more launches per
+    second than one. An explicit
+    ``clip_workers=N`` gives N clips in flight; counts clamp to the file
+    count."""
     n_devices = max(1, min(params.mesh or 1, n_files))
     if params.clip_workers > 0:
         return min(params.clip_workers, n_files), n_devices
@@ -395,7 +492,8 @@ def _run_videos_parallel(files, params: Params, log_func,
                          progress_callback, n_workers: int,
                          cancel_flag=None,
                          video_progress_callback=None,
-                         n_devices: int = 1, device=None) -> bool:
+                         n_devices: int = 1, device=None,
+                         video_done_callback=None) -> bool:
     """Video-level data parallelism: ``n_workers`` clips in flight at once,
     round-robin over ``n_devices`` devices of ``device``'s type
     (``make_mesh``); workers share devices when there are more of them.
@@ -415,7 +513,8 @@ def _run_videos_parallel(files, params: Params, log_func,
       ``process_video`` and before dequeuing the next video;
     * overall progress counts fractional per-video progress of every active
       worker, and ``video_progress_callback(video_path, pct)`` exposes the
-      per-video level.
+      per-video level; ``video_done_callback(video_path, error)`` is
+      called once per finished video (under the log lock).
 
     Workers are exception-guarded: a crash in one video logs the traceback,
     marks the batch errored, and moves on to the next queued video.
@@ -478,6 +577,8 @@ def _run_videos_parallel(files, params: Params, log_func,
                 state["err"] |= err
                 state["done"] += 1
                 frac[wid] = 0.0
+                if video_done_callback is not None:
+                    video_done_callback(video, err)
                 if progress_callback is not None:
                     progress_callback(overall_pct_locked())
 
@@ -507,7 +608,6 @@ def run_headless(input_path: str, params: Params, log_path: str = "run.log",
     pct)`` reports per-video progress (parallel path; the sequential path
     reports it through ``progress_callback``).
     """
-    check_supported(params)
     default_device(device)
     logf = open(log_path, "w")
 

@@ -5,7 +5,7 @@ FunscriptFlow.pyw:32-100; the port's counterpart of the JAX package's
 The reference probes cv2 for CUDA device counts, OpenCL availability and
 the DNN module; the port's equivalents are PyTorch's CUDA inventory and
 the DIS algorithm (always available: PyTorch ops, with their plain twins on
-the CPU). The native decode runtime is not part of the port yet.
+the CPU), and the native C++ decode runtime (built at first use).
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ __all__ = ["get_available_backends", "get_device_info"]
 
 def get_available_backends() -> dict:
     """{backend_name: available} for every selectable backend."""
+    from .. import runtime
+
     return {"CUDA": torch.cuda.is_available(), "DIS": True, "CPU": True,
-            "native_decode": False}
+            "native_decode": runtime.available()}
 
 
 def get_device_info() -> str:

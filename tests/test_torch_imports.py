@@ -46,8 +46,43 @@ def test_port_modules_listed():
                  "funscript_flow_tpu_torch.parallel.signal_sp",
                  "funscript_flow_tpu_torch.utils.devprof",
                  "funscript_flow_tpu_torch.utils.backends",
-                 "funscript_flow_tpu_torch.utils.logging"):
+                 "funscript_flow_tpu_torch.utils.logging",
+                 "funscript_flow_tpu_torch.utils.config",
+                 "funscript_flow_tpu_torch.runtime",
+                 "funscript_flow_tpu_torch.runtime._build",
+                 "funscript_flow_tpu_torch.worker",
+                 "funscript_flow_tpu_torch.gui.app",
+                 "funscript_flow_tpu_torch.gui.player",
+                 "funscript_flow_tpu_torch.gui.preview",
+                 "funscript_flow_tpu_torch.gui.manual"):
         assert want in mods
+
+
+def test_native_runtime_loads_from_the_port_build_dir():
+    """The port builds and loads its own pump library from
+    build/funscript_flow_tpu_torch/, never the JAX package's
+    funscript_flow_tpu/runtime/libframe_pump.so (checked in a fresh
+    interpreter, by the files the process has mapped)."""
+    code = (
+        "import sys\n"
+        "from funscript_flow_tpu_torch import runtime\n"
+        "assert runtime.available(), runtime.unavailable_reason()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print(runtime.library_path())\n"
+        "print('JAXSO', 'funscript_flow_tpu/runtime/' in maps)\n"
+        "print('JAX', any(k == 'jax' or k.startswith('funscript_flow_tpu.')"
+        " for k in sys.modules))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lib, jaxso, jax = out.stdout.split("\n")[:3]
+    assert Path(lib).parent == ROOT / "build" / "funscript_flow_tpu_torch"
+    assert Path(lib).is_file()
+    assert jaxso == "JAXSO False" and jax == "JAX False"
+    assert not list((PKG / "runtime").glob("*.so"))
 
 
 def test_import_whole_port_loads_no_jax():

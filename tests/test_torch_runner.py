@@ -124,13 +124,6 @@ def test_run_headless_folder(tmp_path):
     assert "Found 2 file(s)." in text and "Batch processing complete." in text
 
 
-@pytest.mark.parametrize("kw", [{"use_native_decode": "on"}])
-def test_not_yet_ported_settings_raise(kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trun.process_video(str(tmp_path / "x.mp4"), Params(**kw),
-                           lambda m: None, device="cpu")
-
-
 def test_profile_trace_writes_a_trace(tmp_path):
     from funscript_flow_tpu_torch.utils.logging import profile_trace
 
@@ -186,9 +179,11 @@ def test_backends_and_device_profile_on_cpu():
         get_available_backends, get_device_info)
     from funscript_flow_tpu_torch.utils.devprof import device_profile
 
+    from funscript_flow_tpu_torch import runtime
+
     got = get_available_backends()
     assert got == {"CUDA": torch.cuda.is_available(), "DIS": True,
-                   "CPU": True, "native_decode": False}
+                   "CPU": True, "native_decode": runtime.available()}
     info = get_device_info()
     if torch.cuda.is_available():
         assert "cuda:0" in info
@@ -286,7 +281,7 @@ def test_decode_and_funscript_copies(tmp_path):
     assert tfs.funscript_path("/x/y.mp4") == jfs.funscript_path("/x/y.mp4")
 
 
-def test_cli_flags():
+def test_cli_flags(monkeypatch):
     p = tcli.build_parser()
     opts = {a.dest for a in p._actions}
     assert "device" in opts
@@ -294,7 +289,12 @@ def test_cli_flags():
     args = p.parse_args(["clip.mp4"])
     assert args.device == "cuda" and args.backend == "CUDA"
     assert p.parse_args(["clip.mp4", "--device", "cpu"]).device == "cpu"
-    assert tcli.main([]) == 2  # no input: help, no GUI in the port
+    # no input: the GUI, as in the JAX package (its launch() replaced here)
+    from funscript_flow_tpu_torch.gui import app
+
+    launched = []
+    monkeypatch.setattr(app, "launch", lambda: launched.append(1) or 7)
+    assert tcli.main([]) == 7 and launched == [1]
 
 
 @pytest.mark.parametrize("flags", [
@@ -346,3 +346,70 @@ def test_cli_runs_on_cpu(tmp_path):
                     "--threads", "1", "--log", str(tmp_path / "run.log")])
     assert rc == 0
     assert os.path.exists(tmp_path / "c.funscript")
+
+
+# ---------------------------------------------------- decode from a file
+
+
+@pytest.fixture(scope="module")
+def decode_clips(tmp_path_factory):
+    """Three cv2-written mp4v clips at odd sizes and frame rates (30, 60
+    and 59.94 fps: steps 1, 2 and 2)."""
+    d = tmp_path_factory.mktemp("decode")
+    out = []
+    for i, (h, w, fps, n) in enumerate(((120, 120, 30.0, 40),
+                                        (90, 160, 60.0, 70),
+                                        (60, 80, 59.94, 66))):
+        frames = ref.make_synthetic_frames(n, h=h, w=w, period=9, seed=40 + i)
+        p = str(d / f"c{i}.mp4")
+        import cv2
+
+        vw = cv2.VideoWriter(p, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+        for f in frames:
+            vw.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+        vw.release()
+        out.append(p)
+    return out
+
+
+def _drain(src):
+    out = []
+    while True:
+        b = src.get_batch(5)
+        if not b:
+            break
+        out.extend(b)
+    src.close()
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("gray", [False, True], ids=["rgb", "gray"])
+@pytest.mark.parametrize("vr", [False, True], ids=["flat", "vr"])
+@pytest.mark.parametrize("kind", ["sampled", "prefetch", "sharded3"])
+def test_decode_from_file_matches_jax(decode_clips, kind, vr, gray):
+    """The port's cv2 decode of a file, bitwise against JAX's: its
+    ``sampled_frames``, ``PrefetchingFrameSource`` and a 3-shard
+    ``ShardedFrameSource``, on three clips."""
+    for path in decode_clips:
+        tmeta, jmeta = tdec.probe(path), jdec.probe(path)
+        assert (tmeta.total_frames, tmeta.fps, tmeta.step) == \
+            (jmeta.total_frames, jmeta.fps, jmeta.step)
+        got = {}
+        for name, dec, meta in (("torch", tdec, tmeta), ("jax", jdec, jmeta)):
+            if kind == "sampled":
+                got[name] = np.stack(list(dec.sampled_frames(
+                    path, meta, vr, gray=gray)))
+                continue
+
+            def factory(start, count, depth, dec=dec, meta=meta):
+                return dec.PrefetchingFrameSource(
+                    path, meta, vr, depth=depth, start_sample=start,
+                    max_samples=count, gray=gray)
+
+            src = (factory(0, -1, 16) if kind == "prefetch" else
+                   dec.ShardedFrameSource(factory,
+                                          len(meta.sampled_indices), 3,
+                                          depth=16, gray=gray))
+            got[name] = _drain(src)
+        assert len(got["torch"]) == len(tmeta.sampled_indices)
+        np.testing.assert_array_equal(got["torch"], got["jax"])
