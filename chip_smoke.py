@@ -21,11 +21,14 @@ when any phase fails. Phases, in order:
    random (sigma 5 px) and on a smooth displacement field, K4 in both
    forms (the dense ``sample_abs`` on random coordinates, the patch
    sampler ``sample_patches`` on the patch grids of the DIS presets, with
-   offsets of a few px and some far out of range) and K5 at the DIS level
-   shapes of the three presets. Per kernel and shape: the kernel's time,
+   offsets of a few px and some far out of range) and K5 (its own kernel,
+   three planes read where they lie: one allocation per call, checked) at
+   the DIS level shapes of the three presets. Per kernel and shape: the
+   kernel's time,
    the plain twin's time and, where one PyTorch call computes the same
    function, that call's time (CUDA events around one call, median of
-   ``REPS``: the host's cost of issuing the call included); the device
+   ``REPS``: the host's cost of issuing the call included; K5's yardstick
+   ``F.grid_sample`` reads planes stacked beforehand); the device
    time of the kernel and of the library call (a CUDA graph of ``REPS``
    calls); beside the bound: the larger of its bytes at 3.35 TB/s and its
    float32 operations at 33.5e12 per second (see ``F32_OPS_PER_S``). The
@@ -51,27 +54,41 @@ when any phase fails. Phases, in order:
 6. DIS main path: the same clip through ``process_video`` with
    ``backend="DIS"`` (preset fast); the same checks;
 7. DIS kernels vs plain end to end, as in 5;
+7b. DIS ``medium`` (the only path with K5 at 128 px) and ``ultrafast``:
+   the clip through ``process_video`` once each, with the checks of 6
+   (launches per window 78/0/3 and 26/0/0 for sample_patches/sample_abs/
+   warp_planes), then kernels vs plain on their first two windows;
 8. device signal chain: a one-hour signal (108,000 samples at 30 fps)
    through ``compute_actions`` with ``signal_backend="auto"`` on the card,
    checked against the host chain (within 0.5 of its 0-100 curve);
-8b. file, where the pump builds (else one line naming what the machine
-   lacks, and no file is decoded another way): a ``FILE_SIZE`` clip of
-   ``FRAMES`` frames of the zoom texture at 30 fps, encoded by the port's
-   encoder (h264 where libx264 opens, else mpeg4), through
+8b. file, where the pump builds: a ``FILE_SIZE`` clip of ``FRAMES``
+   frames of the zoom texture at 30 fps, encoded by the port's encoder
+   (h264 where libx264 opens, else mpeg4), through
    ``process_video(use_native_decode="on")``, cold and warm: the pump's
    fast engine decodes it, 8/12/12 launches per window, the funscript
    within 2 ``pos`` (same ``at``) of the same pump frames through
    ``preopened``; pairs/s with decode included, the stage timers and the
    decode rate alone. Then the BatchWorker phase (9b) on three encoded
-   256x256 files of ``FOLDER_CLIPS``' lengths;
+   256x256 files of ``FOLDER_CLIPS``' lengths. Where the pump does not
+   build (the H100 machine: no libav headers), one line naming what the
+   machine lacks, then the same clip written by ``cv2.VideoWriter``
+   (mp4v) and decoded by cv2, as the default ``use_native_decode="auto"``
+   does there: ``python -m funscript_flow_tpu_torch <clip>`` with no
+   flags in a subprocess (exit 0, the funscript written, the
+   ``Decode: OpenCV ...; native pump not taken: ...`` line), then
+   ``process_video`` in this process (the CLI's bytes, 8/12/12 launches
+   per window, pairs/s with decode included, the stage timers) and the
+   same bytes from the frames of ``io.decode.sampled_frames`` through
+   ``preopened``. Without ``cv2`` or an mp4v writer, one line says why;
 9. folder: three clips (``FOLDER_CLIPS``: 900, 1200 and 1800 frames)
    through the runner's folder workers (``_run_videos_parallel``) on
    ``cuda:0``, with 1 and with 3 workers, for Farnebäck and for DIS
    (fast): each clip's funscript byte-identical across the runs, each
    kernel launched its expected count per window summed over the clips;
-   the folder's pairs/s per run. The card has no OpenCV, so the clips are
-   placeholder files that a replaced ``runner._open_video`` serves from
-   memory, from any ``start_sample``;
+   the folder's pairs/s per run. The clips are placeholder files that a
+   replaced ``runner._open_video`` serves from memory, from any
+   ``start_sample``, so that the phase needs no decoder and measures no
+   decode;
 9b. BatchWorker (here, on the same placeholder clips, where the pump does
    not build): the three clips through ``worker.BatchWorker`` on the card,
    Farnebäck and then DIS: all three generated, the run's log file
@@ -98,7 +115,8 @@ when any phase fails. Phases, in order:
    launch rate of small eager ops from 1 and from 3 threads;
 14. one JSON line listing the kernels, then the contract line.
 
-Every line of phases 8b-12 ends with the card's name and power limit.
+Every line of phases 7b and 8b-12 ends with the card's name and power
+limit.
 
 Imports nothing of JAX; data is made from ``SEED`` on the card (the file
 phases encode it into files first).
@@ -130,10 +148,17 @@ POLY = ((5, 1.2), (7, 1.5))  # (poly_n, poly_sigma) checked; the first is timed
 # launches per dispatched window of each main path; every other kernel 0
 EXPECTED_PER_WINDOW = {
     "farneback": {"poly_exp": 8, "warp_bilinear": 12, "box_blur_solve": 12},
-    # 17 = 16 descent steps + 1 densification sample, at 2 levels; one
-    # refinement warp per level
+    # preset fast: 17 = 16 descent steps + 1 densification sample, at 2
+    # levels; one refinement warp per level
     "dis": {"sample_abs": 0, "sample_patches": 34, "warp_planes": 2},
+    # 26 = 25 steps + 1, at 3 levels (32-128 px); one warp per level
+    "dis medium": {"sample_abs": 0, "sample_patches": 78, "warp_planes": 3},
+    # 13 = 12 steps + 1, at 2 levels; no refinement
+    "dis ultrafast": {"sample_abs": 0, "sample_patches": 26,
+                      "warp_planes": 0},
 }
+# the DIS presets driven end to end after the main path's fast one
+DIS_PRESETS = ("medium", "ultrafast")
 # DIS level shapes on 256x256 frames: source side h -> dense patch grid Ho
 K4_SHAPES = {"fast": ((32, 56), (64, 120)),
              "medium": ((32, 72), (64, 152), (128, 328))}
@@ -184,7 +209,7 @@ KERNEL_META = {
         "bytes_px": 4, "flops_px": 17,
     },
     "warp_planes": {
-        "source": "funscript_flow_tpu_torch/csrc/warp.cu",
+        "source": "funscript_flow_tpu_torch/csrc/warp_planes.cu",
         "replaces": "funscript_flow_tpu/ops/pallas/warp.py:226",
         "bytes_px": 2 * 4 + 3 * 4 + 3 * 4, "flops_px": 35,
     },
@@ -600,10 +625,13 @@ def k4_patch_section(torch, dev, gen, out, host, per_preset) -> None:
 
 def k5_section(torch, dev, gen, out, host, per_preset) -> None:
     """K5 at the DIS level sizes of the three presets, flow pre-clamped as
-    in ``dis.variational_refinement``; sums over the fast preset's sizes."""
+    in ``dis.variational_refinement``; sums over the fast preset's sizes.
+    The wrapper reads the three planes where they lie: one call allocates
+    its output and nothing else (a stack or copy would allocate too).
+    Library: ``F.grid_sample`` on planes stacked beforehand."""
     import torch.nn.functional as F
 
-    from funscript_flow_tpu_torch.ops import farneback as fb
+    from funscript_flow_tpu_torch.models import dis
     from funscript_flow_tpu_torch.ops.cuda import warp
 
     B = B_MAIN
@@ -617,10 +645,16 @@ def k5_section(torch, dev, gen, out, host, per_preset) -> None:
         u = (torch.clamp(xs + u, 0.0, S - 1.0) - xs).contiguous()
         v = (torch.clamp(ys + v, 0.0, S - 1.0) - ys).contiguous()
         got = warp.warp_planes(planes, u, v)
-        want = fb.warp_bilinear(torch.stack(planes, 1), u, v)
+        want = dis._warp_planes_plain(planes, u, v)
         torch.cuda.synchronize()
         err = max_err(got, want)
         check(torch.equal(got, want), f"warp_planes {S}px: max abs err {err}")
+        del got
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        got = warp.warp_planes(planes, u, v)
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+        check(allocs == 1, f"warp_planes {S}px: {allocs} allocations in one "
+                           f"call, expected 1 (its output)")
         stacked = torch.stack(planes, 1)
         grid = grid_of(torch, u, v)
 
@@ -630,8 +664,8 @@ def k5_section(torch, dev, gen, out, host, per_preset) -> None:
         def lib5():
             return F.grid_sample(stacked, grid, mode="bilinear",
                                  padding_mode="border", align_corners=True)
-        t = (time_ms(torch, k5), time_ms(torch, lambda: fb.warp_bilinear(
-            torch.stack(planes, 1), u, v)), time_ms(torch, lib5))
+        t = (time_ms(torch, k5), time_ms(torch, lambda: dis._warp_planes_plain(
+            planes, u, v)), time_ms(torch, lib5))
         dev5 = (device_ms(torch, k5), device_ms(torch, lib5))
         n_px = B * S * S
         _row(out, "warp_planes", f"{S}x{S}", err, *t, dev5, n_px,
@@ -643,6 +677,8 @@ def k5_section(torch, dev, gen, out, host, per_preset) -> None:
             host["warp_planes"] = host_us(torch, k5)
         del planes, u, v, got, want, stacked, grid
         torch.cuda.empty_cache()
+    print("kernel warp_planes: one allocation (the output) per call at "
+          "every size: no stack or copy before the launch")
 
 
 SECTIONS = {"poly_exp": k1_section, "warp_bilinear": k2_section,
@@ -704,7 +740,7 @@ def edge_phase(torch, dev) -> None:
                 got = (warp.warp_bilinear(R, u, v) if P == 5 else
                        warp.warp_planes([p.contiguous() for p in R.unbind(1)],
                                         u, v))
-                want = fb.warp_bilinear(R, u, v)
+                want = fb.warp_bilinear(R, u, v)  # = dis._warp_planes_plain
                 check(torch.equal(got, want),
                       f"{name} B={B} {H}x{W} +-{amp} px: max abs err "
                       f"{max_err(got, want)}")
@@ -789,16 +825,19 @@ class ListSource:
         self._i = len(self._frames)
 
 
-def main_path(torch, dev, frames, params=None, fps: float = 30.0) -> dict:
-    """The clip through ``process_video`` (default Params unless given);
-    returns the funscript, the log and the launch counts of the run."""
+def main_path(torch, dev, frames, params=None, fps: float = 30.0,
+              meta=None) -> dict:
+    """The clip through ``process_video`` (default Params unless given;
+    ``meta``: a file's, else 256x256 frames at ``fps``); returns the
+    funscript (and its bytes), the log and the launch counts of the run."""
     from funscript_flow_tpu_torch.io.decode import VideoMeta
     from funscript_flow_tpu_torch.io.funscript import load_funscript
     from funscript_flow_tpu_torch.ops import cuda as kcuda
     from funscript_flow_tpu_torch.runner import process_video
     from funscript_flow_tpu_torch.utils.params import Params
 
-    meta = VideoMeta(total_frames=len(frames), fps=fps, width=256, height=256)
+    meta = meta or VideoMeta(total_frames=len(frames), fps=fps, width=256,
+                             height=256)
     with tempfile.TemporaryDirectory() as tmp:
         video = os.path.join(tmp, "smoke_clip.mp4")
         logs = []
@@ -815,12 +854,16 @@ def main_path(torch, dev, frames, params=None, fps: float = 30.0) -> dict:
         wall = time.perf_counter() - t0
         counts = kcuda.launch_counts()
         check(not err, "process_video reported an error:\n" + "\n".join(logs))
-        fs = load_funscript(os.path.join(tmp, "smoke_clip.funscript"))
+        fs_path = os.path.join(tmp, "smoke_clip.funscript")
+        fs = load_funscript(fs_path)
+        with open(fs_path, "rb") as f:
+            fs_bytes = f.read()
     m = next((re.search(r"Flow windows dispatched: (\d+) \((\d+) pairs\)", ln)
               for ln in logs if "Flow windows dispatched" in ln), None)
     check(m is not None, "no window count in the log:\n" + "\n".join(logs))
-    return {"funscript": fs, "logs": logs, "wall": wall, "counts": counts,
-            "windows": int(m.group(1)), "pairs": int(m.group(2))}
+    return {"funscript": fs, "bytes": fs_bytes, "logs": logs, "wall": wall,
+            "counts": counts, "windows": int(m.group(1)),
+            "pairs": int(m.group(2))}
 
 
 def check_funscript(fs: dict) -> float:
@@ -845,7 +888,9 @@ GAP_MS = 500.0
 GAP_TOL_MS = 70.0
 # The same for the DIS main path: main_path(torch, cpu, make_clip(torch,
 # cpu, 1800, 0), Params(overwrite=True, backend="DIS", pair_batch=64))
-# gave 123 actions, 117 of the gaps 467 or 533 ms, median 467 ms.
+# gave 123 actions, 117 of the gaps 467 or 533 ms, median 467 ms; with
+# dis_preset="medium" 123 actions, 117 gaps of 467 or 533 ms, median 467
+# ms; with "ultrafast" 123 actions, 116 such gaps, median 483.5 ms.
 DIS_GAP_MS = 500.0
 DIS_GAP_TOL_MS = 70.0
 
@@ -885,16 +930,18 @@ def run_main_path(torch, dev, frames, algorithm: str) -> dict:
     return mp
 
 
-def kernels_vs_plain(torch, dev, frames, algorithm: str) -> dict:
-    """First two full windows through the flow program, kernels vs plain;
-    returns the max abs difference per output (bars of tests/test_flow.py:
-    centers 1.0, dots 5e-3, mean_mag 1e-3)."""
+def kernels_vs_plain(torch, dev, frames, algorithm: str,
+                     preset: str = "fast") -> dict:
+    """First two full windows through the flow program, kernels vs plain
+    (``preset``: the DIS preset); returns the max abs difference per output
+    (bars of tests/test_flow.py: centers 1.0, dots 5e-3, mean_mag 1e-3)."""
     from funscript_flow_tpu_torch.models.pipeline import (FlowAnalyzer,
                                                           PipelineConfig)
 
     clip = np.stack(frames[: 2 * 240 + 1])
     res = {k: FlowAnalyzer(PipelineConfig(flow_algorithm=algorithm,
-                                          kernels=k), device=dev)
+                                          dis_preset=preset, kernels=k),
+                           device=dev)
            .analyze_video_pairs(clip) for k in ("auto", "plain")}
     a, p = res["auto"], res["plain"]
     diff = {k: float(np.abs(a[k].astype(np.float64) - p[k]).max())
@@ -904,6 +951,33 @@ def kernels_vs_plain(torch, dev, frames, algorithm: str) -> dict:
         check(diff[k] <= tol,
               f"{algorithm}: {k}: kernels vs plain {diff[k]} > {tol}")
     return diff
+
+
+def dis_presets_phase(torch, dev, card, frames) -> None:
+    """The clip through ``process_video`` with each of ``DIS_PRESETS``,
+    once (the process warm from the fast runs): the funscript contract, the
+    keyframe period and each kernel's launches per window of the preset;
+    then its first two windows, kernels vs plain."""
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    for preset in DIS_PRESETS:
+        mp = main_path(torch, dev, frames, Params(overwrite=True,
+                                                  backend="DIS",
+                                                  dis_preset=preset))
+        gap = check_funscript(mp["funscript"])
+        print(f"main path dis {preset}: {mp['pairs']} pairs in "
+              f"{mp['windows']} windows, wall {mp['wall']:.3f} s, "
+              f"{mp['pairs'] / mp['wall']:.1f} pairs/s, "
+              f"{len(mp['funscript']['actions'])} actions, median keyframe "
+              f"gap {gap:.1f} ms; launches {mp['counts']} ({card})")
+        if dev.type == "cuda":
+            check_launches(mp["counts"], mp["windows"], f"dis {preset}")
+        check(abs(gap - DIS_GAP_MS) <= DIS_GAP_TOL_MS,
+              f"dis {preset}: median keyframe gap {gap} ms, expected "
+              f"{DIS_GAP_MS} +- {DIS_GAP_TOL_MS}")
+        diff = kernels_vs_plain(torch, dev, frames, "dis", preset)
+        print(f"kernels vs plain dis {preset}, first two windows: max abs "
+              f"diff {diff} ({card})")
 
 
 def signal_chain_phase(torch, dev):
@@ -961,11 +1035,11 @@ def device_rows(prof) -> list:
                   reverse=True)
 
 
-# the hand kernels' symbols, as the profiler names them: K1, K2/K5, K3,
-# K4's patch form, K4's dense form
+# the hand kernels' symbols, as the profiler names them: K1, K2, K3, K4's
+# patch form, K4's dense form, K5
 HAND_KERNELS = ("poly_exp_kernel", "warp_bilinear_kernel",
                 "box_blur_solve_kernel", "sample_kernel<true",
-                "sample_kernel<false")
+                "sample_kernel<false", "warp_planes_kernel")
 
 
 def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
@@ -1019,8 +1093,8 @@ def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
 def serve_clips(folder: str, clips: dict) -> None:
     """Put a placeholder file for each clip name of ``clips`` (name ->
     frames) into ``folder`` and make the runner open each such file as
-    (VideoMeta, ListSource) from any ``start_sample``: the card has no
-    OpenCV to decode a file."""
+    (VideoMeta, ListSource) from any ``start_sample``: the phases that use
+    it need no decoder and measure no decode."""
     from funscript_flow_tpu_torch import runner
     from funscript_flow_tpu_torch.io.decode import VideoMeta
 
@@ -1398,18 +1472,13 @@ def pump_missing(probe: dict) -> str:
             f", C++ compiler {probe['cxx'] or 'none'}")
 
 
-def write_zoom_clip(torch, dev, path: str, n: int, h: int, w: int,
-                    seed: int = SEED) -> str:
-    """Encode ``n`` frames of ``make_clip``'s zoomed texture at ``h``x``w``
+def zoom_frames(torch, dev, n: int, h: int, w: int, seed: int = SEED):
+    """``n`` uint8 gray ``h``x``w`` frames of ``make_clip``'s zoomed texture
     (the texture's central 256x256 view stretched to the frame, so the
-    pump's 256x256 analysis frames show ``make_clip``'s motion) with the
-    port's encoder: ``libx264`` where it opens, else ``mpeg4``. Returns the
-    codec."""
+    256x256 analysis frames of a decode show ``make_clip``'s motion),
+    yielded one by one."""
     import torch.nn.functional as F
 
-    from funscript_flow_tpu_torch import runtime
-
-    codec = "libx264" if runtime.encoder_available("libx264") else "mpeg4"
     rng = np.random.default_rng(seed)
     tex = torch.from_numpy(rng.random((1, 1, 512, 512), dtype=np.float32)).to(dev)
     r = torch.arange(-9, 10, dtype=torch.float32, device=dev)
@@ -1420,21 +1489,29 @@ def write_zoom_clip(torch, dev, path: str, n: int, h: int, w: int,
     tex = ((tex - tex.mean()) / tex.std() * 40 + 128).clamp(0, 255)
     px = (torch.arange(w, dtype=torch.float32, device=dev) - (w - 1) / 2) * 256 / w
     py = (torch.arange(h, dtype=torch.float32, device=dev) - (h - 1) / 2) * 256 / h
+    for s0 in range(0, n, 25):
+        t = torch.arange(s0, min(n, s0 + 25), dtype=torch.float32, device=dev)
+        s = 1 + 0.06 * torch.sin(2 * np.pi * t / 30)
+        X = 255.5 + px[None, None, :] / s[:, None, None]
+        Y = 255.5 + py[None, :, None] / s[:, None, None]
+        grid = torch.stack([(X / 511 * 2 - 1).expand(-1, h, w),
+                            (Y / 511 * 2 - 1).expand(-1, h, w)], dim=-1)
+        img = F.grid_sample(tex.expand(len(t), -1, -1, -1), grid,
+                            mode="bilinear", align_corners=True)
+        yield from img[:, 0].round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def write_zoom_clip(torch, dev, path: str, n: int, h: int, w: int,
+                    seed: int = SEED) -> str:
+    """Encode ``n`` frames of ``zoom_frames`` at ``h``x``w`` with the
+    port's encoder: ``libx264`` where it opens, else ``mpeg4``. Returns the
+    codec."""
+    from funscript_flow_tpu_torch import runtime
+
+    codec = "libx264" if runtime.encoder_available("libx264") else "mpeg4"
     with runtime.VideoEncoder(path, w, h, 30.0, codec=codec) as enc:
-        for s0 in range(0, n, 25):
-            t = torch.arange(s0, min(n, s0 + 25), dtype=torch.float32,
-                             device=dev)
-            s = 1 + 0.06 * torch.sin(2 * np.pi * t / 30)
-            X = 255.5 + px[None, None, :] / s[:, None, None]
-            Y = 255.5 + py[None, :, None] / s[:, None, None]
-            grid = torch.stack([(X / 511 * 2 - 1).expand(-1, h, w),
-                                (Y / 511 * 2 - 1).expand(-1, h, w)], dim=-1)
-            img = F.grid_sample(tex.expand(len(t), -1, -1, -1), grid,
-                                mode="bilinear", align_corners=True)
-            gray = img[:, 0].round().clamp(0, 255).to(torch.uint8)
-            for f in gray.unsqueeze(-1).expand(-1, -1, -1, 3).contiguous() \
-                    .cpu().numpy():
-                enc.write(f)
+        for f in zoom_frames(torch, dev, n, h, w, seed):
+            enc.write(np.repeat(f[:, :, None], 3, axis=2))
     return codec
 
 
@@ -1513,6 +1590,121 @@ def file_phase(torch, dev, card, n: int = FRAMES, size=FILE_SIZE) -> dict:
     print(f"file: {len(a)} actions, same 'at' as the pump's frames through "
           f"preopened, max |pos delta| {dpos} (tol 2) ({card})")
     return {"pairs": pairs, "wall": wall}
+
+
+def cv2_file_phase(torch, dev, card, n: int = FRAMES, size=FILE_SIZE) -> None:
+    """Where the pump does not build: a ``size`` (h, w) clip of ``n``
+    frames at 30 fps written by ``cv2.VideoWriter`` (mp4v), decoded by cv2
+    as the runner's default ``use_native_decode="auto"`` does without a
+    pump. First ``python -m funscript_flow_tpu_torch <clip>`` with no flags
+    in a subprocess (``--device cpu`` off the card): exit 0, the funscript
+    written, the ``Decode: OpenCV ...; native pump not taken: ...`` line
+    logged. Then ``process_video`` of the clip in this process: the same
+    bytes as the CLI's, launches 8/12/12 per window, and the same bytes as
+    the frames of ``io.decode.sampled_frames`` (the sequential decode) fed
+    through ``preopened``. Prints pairs/s with decode included and the
+    stage timers. Without ``cv2``, or where its writer does not open, one
+    line says why and nothing runs; once the clip is written, any failure
+    fails the run."""
+    try:
+        import cv2
+    except Exception as e:  # report whatever stops the import
+        print(f"cv2 file phase skipped: cv2 does not import "
+              f"({type(e).__name__}: {e})"[:300])
+        return
+    from funscript_flow_tpu_torch.io import decode as iodec
+    from funscript_flow_tpu_torch.ops import cuda as kcuda
+    from funscript_flow_tpu_torch.runner import process_video
+    from funscript_flow_tpu_torch.utils.params import Params
+
+    h, w = size
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "cv2_clip.mp4")
+        out = os.path.join(tmp, "cv2_clip.funscript")
+        writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"mp4v"), 30.0,
+                                 (w, h))
+        if not writer.isOpened():
+            print(f"cv2 file phase skipped: cv2 {cv2.__version__}'s "
+                  f"VideoWriter does not open mp4v")
+            return
+        t0 = time.perf_counter()
+        try:
+            for f in zoom_frames(torch, dev, n, h, w):
+                writer.write(np.repeat(f[:, :, None], 3, axis=2))
+        finally:
+            writer.release()
+        enc_s = time.perf_counter() - t0
+        print(f"cv2 file: {n} frames {w}x{h} at 30 fps written with cv2 "
+              f"{cv2.__version__} (mp4v) in {enc_s:.3f} s, "
+              f"{os.path.getsize(video)} bytes ({card})")
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, (root, os.environ.get("PYTHONPATH")))))
+        cmd = [sys.executable, "-m", "funscript_flow_tpu_torch", video]
+        if dev.type != "cuda":
+            cmd += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cv2 file: the CLI exited "
+              f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        check(os.path.exists(out), "cv2 file: the CLI wrote no funscript:\n"
+              + proc.stdout[-3000:])
+        decode = [m for m in proc.stdout.splitlines()
+                  if m.startswith("Decode: ")]
+        check(len(decode) == 1 and decode[0].startswith("Decode: OpenCV")
+              and "; native pump not taken: " in decode[0],
+              f"cv2 file: the CLI logged no OpenCV decode line: {decode}")
+        with open(out, "rb") as f:
+            cli_bytes = f.read()
+        print(f"cv2 file: python -m funscript_flow_tpu_torch {' '.join(cmd[3:])}"
+              f" exited 0 in {cli_s:.3f} s (process start included) and "
+              f"wrote the funscript; {decode[0]} ({card})")
+
+        os.remove(out)
+        logs = []
+        kcuda.reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = process_video(video, Params(overwrite=True), logs.append,
+                            device=str(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kcuda.launch_counts()
+        check(not err, "cv2 file: process_video failed:\n" + "\n".join(logs))
+        windows, pairs = _read_log(logs)
+        if dev.type == "cuda":
+            check_launches(counts, windows, "farneback")
+        timers = next(m for m in logs if m.startswith("Stage timers"))
+        engine = next(m for m in logs if m.startswith("Decode: "))
+        with open(out, "rb") as f:
+            got = f.read()
+        gap = check_funscript(json.loads(got))
+        check(got == cli_bytes, "cv2 file: process_video's funscript differs "
+                                "from the CLI's")
+        print(f"cv2 file: process_video: {pairs} pairs in {windows} windows, "
+              f"wall {wall:.3f} s, {pairs / wall:.1f} pairs/s with decode "
+              f"included; {engine.split(';')[0]}; {timers}; launches "
+              f"{counts}; median keyframe gap {gap:.1f} ms; the CLI's bytes "
+              f"({card})")
+        t0 = time.perf_counter()
+        meta = iodec.probe(video)
+        frames = list(iodec.sampled_frames(video, meta, gray=True))
+        dec_s = time.perf_counter() - t0
+    check(len(frames) == len(meta.sampled_indices),
+          f"cv2 file: sampled_frames gave {len(frames)} of "
+          f"{len(meta.sampled_indices)} frames")
+    want = main_path(torch, dev, frames, Params(overwrite=True),
+                     meta=meta)["bytes"]
+    check(got == want, "cv2 file: the funscript differs from that of the "
+                       "same frames through preopened")
+    print(f"cv2 file: sampled_frames decoded {len(frames)} frames in "
+          f"{dec_s:.3f} s ({len(frames) / dec_s:.1f} frames/s, one thread); "
+          f"their funscript through preopened has the same bytes ({card})")
 
 
 def batch_worker_phase(torch, dev, card, files, algorithm) -> None:
@@ -1633,6 +1825,7 @@ def main(argv=None) -> int:
             diff = kernels_vs_plain(torch, dev, frames, algorithm)
             print(f"kernels vs plain {algorithm}, first two windows: "
                   f"max abs diff {diff}")
+        dis_presets_phase(torch, dev, card, frames)
         signal = signal_chain_phase(torch, dev)
         if probe["pump"]["built"]:
             file_phase(torch, dev, card)
@@ -1645,6 +1838,7 @@ def main(argv=None) -> int:
                     batch_worker_phase(torch, dev, card, files, algorithm)
         else:
             print(pump_missing(probe))
+            cv2_file_phase(torch, dev, card)
         from funscript_flow_tpu_torch import runner
 
         open_video = runner._open_video

@@ -1,6 +1,7 @@
-// Bilinear samplers for Hopper (sm_90a): the relative warp of K2 (Farnebäck
-// R1 planes) and K5 (DIS refinement planes), and K4, the sampler of the DIS
-// patch search in its patch and dense forms (below).
+// Bilinear samplers for Hopper (sm_90a): K2, the relative warp of the
+// Farnebäck R1 planes, and K4, the sampler of the DIS patch search in its
+// patch and dense forms (below). K5, the DIS refinement's warp of three
+// planes, has a kernel of its own in warp_planes.cu.
 //
 // Replaces: funscript_flow_tpu/ops/pallas/warp.py warp_bilinear_pallas on the
 // Farnebäck path. Plain twin: funscript_flow_tpu_torch/ops/farneback.py
@@ -22,7 +23,7 @@
 // apart. blockIdx.z = b and offsets inside a plane are 32-bit: no 64-bit
 // division. A pixel's displacement, weights and corner offsets are
 // computed once and serve all P planes; P is a template parameter (5 for
-// K2, 3 for K5) so the plane loop unrolls.
+// K2; 0 takes any P at run time) so the plane loop unrolls.
 // - The block reduces its pixels' clamped corners to their source bounding
 //   box. When one plane's box fits the staging buffer (BOX_MAX floats), as
 //   it does on every tile of the smooth flow of a real window, each plane's
@@ -34,7 +35,9 @@
 //   device memory directly. Both branches do the same arithmetic in the
 //   same order on the same values.
 // - WMIN_BLOCKS caps the registers so that four blocks (32 warps) share an
-//   SM and one block's copies and barriers overlap the others' gathers.
+//   SM and one block's copies and barriers overlap the others' gathers. At
+//   P=5 the cap costs 8 B of spill stores and 16 B of loads; three blocks
+//   (80 registers, no spill) ran 4% slower at 256 px on the H100.
 //
 // Numerics: the same expression order as the plain twin, built with
 // --fmad=false, so each product and sum is rounded as there (bitwise equal
@@ -45,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int WT = 32;           // output tile width: a warp's columns
@@ -54,27 +59,6 @@ constexpr int WTHREADS = 256;
 constexpr int WMIN_BLOCKS = 4;   // resident blocks per SM: <= 64 registers
 constexpr int WWARPS = WTHREADS / 32;
 constexpr int BOX_MAX = 5120;    // floats of one staged plane (20 KB)
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Copy rows [by, by + bh) x columns [bx, bx + bw) of a plane (row stride W)
 // into dst (row stride ds) with the WTHREADS threads of a block; with vec,
@@ -233,12 +217,9 @@ int launch_warp(const float* R, const float* u, const float* v, float* out,
 }  // namespace
 
 // R [B,P,H,W], u/v [B,H,W], out [B,P,H,W], all f32 on the device.
-// Returns the launch's cudaError_t. Serves two entry points: K2
-// (warp_bilinear, P=5 Farnebäck planes) and K5 (warp_planes, P=3 DIS
-// planes I1, I1x, I1y; replaces warp_planes_padded in
-// funscript_flow_tpu/ops/pallas/warp.py, whose W padding to 128 lanes
-// existed only for Mosaic). Any other P takes the same kernel with the
-// plane count at run time.
+// Returns the launch's cudaError_t. K2 (warp_bilinear) passes the P=5
+// Farnebäck planes; any other P takes the same kernel with the plane count
+// at run time.
 extern "C" int ff_warp_bilinear(const float* R, const float* u, const float* v,
                                 float* out, int B, int P, int H, int W,
                                 void* stream) {
@@ -247,7 +228,6 @@ extern "C" int ff_warp_bilinear(const float* R, const float* u, const float* v,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (P == 5) return launch_warp<5>(R, u, v, out, B, P, H, W, st);
-  if (P == 3) return launch_warp<3>(R, u, v, out, B, P, H, W, st);
   return launch_warp<0>(R, u, v, out, B, P, H, W, st);
 }
 

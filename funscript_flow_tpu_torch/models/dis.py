@@ -10,8 +10,8 @@ per level. The arithmetic repeats the JAX module's, op for op and in its
 order; the documented deviations from cv2 (no serial spatial
 propagation, per-patch densification weights) are the JAX module's.
 
-Two steps are hand-written CUDA kernels (``ops/cuda/warp.py``, source
-``csrc/warp.cu``):
+Two steps are hand-written CUDA kernels (``ops/cuda/warp.py``, sources
+``csrc/warp.cu`` and ``csrc/warp_planes.cu``):
 
 * K4 ``sample_patches``: the patch sampler, which forms each patch's
   clamped corner from its offset and bilinearly samples I1 over the patch,
@@ -21,8 +21,9 @@ Two steps are hand-written CUDA kernels (``ops/cuda/warp.py``, source
   level's variational refinement.
 
 Their plain twins are :func:`_sample_patches_plain` (the dense grid of
-:func:`_sample_patches_dense` fetched by :func:`bilinear_abs`) here and
-``ops.farneback.warp_bilinear``. ``DISConfig(kernels="plain")`` runs the
+:func:`_sample_patches_dense` fetched by :func:`bilinear_abs`) and
+:func:`_warp_planes_plain` (``ops.farneback.warp_bilinear`` of the stacked
+planes). ``DISConfig(kernels="plain")`` runs the
 twins on any device (the reference run of the kernel checks); with
 ``"auto"`` the wrappers launch the kernels on CUDA tensors and compute the
 twins on CPU tensors.

@@ -4,8 +4,9 @@ The sources in ``funscript_flow_tpu_torch/csrc/*.cu`` have a plain C
 interface. On first use, ``nvcc`` compiles each source to an object (all
 started together), links them into ``build/funscript_flow_tpu_torch/
 libffkernels.so`` at the repository root, and the library is loaded with
-``ctypes``. A stamp beside the library holds the hash of the sources and
-flags; a change to either rebuilds. Nothing is built or loaded at import
+``ctypes``. A stamp beside the library holds the hash of the sources, the
+headers they include (``csrc/*.cuh``) and the flags; a change to any of
+them rebuilds. Nothing is built or loaded at import
 time — only the first kernel launch (or an explicit :func:`load`) does it.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so that every
@@ -44,7 +45,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "funscript_flow_tpu_torch"
 LIB_NAME = "libffkernels.so"
-SOURCES = ("polyexp.cu", "warp.cu", "flow_step.cu")
+SOURCES = ("polyexp.cu", "warp.cu", "warp_planes.cu", "flow_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "ff_poly_exp": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # R [B,P,H,W], u, v, out [B,P,H,W], B, P, H, W, stream
     "ff_warp_bilinear": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # I1, I1x, I1y, u, v [B,H,W], out [B,3,H,W], B, H, W, stream
+    "ff_warp_planes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # img [B,h,w], fy, fx, out [B,Ho,Wo], B, h, w, Ho, Wo, stream
     "ff_sample_abs": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # img [B,h,w], pu, pv [B,ny,nx], out [B,ny,nx,ps*ps], B, h, w, ny, nx,
@@ -89,9 +92,10 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in [CSRC / name for name in SOURCES] + sorted(
+            CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return h.hexdigest()
 
 

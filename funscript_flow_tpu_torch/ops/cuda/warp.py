@@ -1,4 +1,5 @@
-"""Wrappers of the bilinear-sampling CUDA kernels (``csrc/warp.cu``).
+"""Wrappers of the bilinear-sampling CUDA kernels (``csrc/warp.cu`` and
+``csrc/warp_planes.cu``).
 
 Four entry points, each with its own launch count, replacing the three
 entry points of ``funscript_flow_tpu/ops/pallas/warp.py``:
@@ -6,8 +7,9 @@ entry points of ``funscript_flow_tpu/ops/pallas/warp.py``:
 * ``warp_bilinear`` (K2, ``warp_bilinear_pallas``, Farnebäck): relative
   warp of the 5 R1 planes. Plain twin: ``ops.farneback.warp_bilinear``.
 * ``warp_planes`` (K5, ``warp_planes_padded``, DIS variational
-  refinement): relative warp of 3 planes through the same kernel. Plain
-  twin: ``ops.farneback.warp_bilinear`` on the stacked planes.
+  refinement): relative warp of 3 planes, read through a pointer each by a
+  kernel of their own (``ff_warp_planes``). Plain twin:
+  ``models.dis._warp_planes_plain``.
 * ``sample_patches`` (K4, ``sample_abs_pallas`` as the DIS patch sampler
   uses it): the ps x ps patches of one plane at offset patch corners,
   written in the patch layout. Plain twin: ``models.dis.
@@ -24,13 +26,19 @@ import torch
 
 from .. import farneback
 from ...models import dis
-from ._build import check_tensor, launch, same_device
+from ._build import check_planes, check_tensor, launch, same_device
 
 __all__ = ["warp_bilinear", "warp_planes", "sample_patches", "sample_abs"]
 
 
-def _warp(kernel: str, R: torch.Tensor, u: torch.Tensor,
-          v: torch.Tensor) -> torch.Tensor:
+def warp_bilinear(R: torch.Tensor, u: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of the P planes of R [B, P, H, W] at (x + u, y + v)
+    with per-corner clamping -> [B, P, H, W]. The caller masks
+    out-of-bounds pixels (``farneback.warp_inbounds``).
+
+    A CUDA tensor launches the kernel; a CPU tensor computes the plain twin.
+    """
     check_tensor(R, "R")
     if R.dim() != 4:
         raise ValueError(f"R: expected [B, P, H, W], got {tuple(R.shape)}")
@@ -42,30 +50,42 @@ def _warp(kernel: str, R: torch.Tensor, u: torch.Tensor,
     if R.is_cpu:
         return farneback.warp_bilinear(R, u, v)
     out = torch.empty_like(R)
-    launch(kernel, "ff_warp_bilinear", R, R.data_ptr(), u.data_ptr(),
-           v.data_ptr(), out.data_ptr(), B, P, H, W)
+    launch("warp_bilinear", "ff_warp_bilinear", R, R.data_ptr(),
+           u.data_ptr(), v.data_ptr(), out.data_ptr(), B, P, H, W)
     return out
 
 
-def warp_bilinear(R: torch.Tensor, u: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of the P planes of R [B, P, H, W] at (x + u, y + v)
-    with per-corner clamping -> [B, P, H, W]. The caller masks
-    out-of-bounds pixels (``farneback.warp_inbounds``).
-
-    A CUDA tensor launches the kernel; a CPU tensor computes the plain twin.
-    """
-    return _warp("warp_bilinear", R, u, v)
+_PLANE_NAMES = ("I1", "I1x", "I1y", "u", "v")
 
 
 def warp_planes(planes, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Relative bilinear warp of a sequence of [B, H, W] planes by (u, v)
-    -> [B, P, H, W], corners clamped one by one. The DIS refinement passes
-    (I1, I1x, I1y) with (u, v) pre-clamped so every sample is in bounds.
+    """Relative bilinear warp of the three [B, H, W] planes of ``planes``
+    (a list or a tuple) by (u, v) -> [B, 3, H, W], corners clamped one by
+    one. The DIS refinement passes (I1, I1x, I1y) with (u, v) pre-clamped
+    so every sample is in bounds. Every plane and u, v: contiguous float32
+    of one shape on one device, else it raises; nothing is copied before
+    the launch.
 
     A CUDA tensor launches the kernel; a CPU tensor computes the plain twin.
     """
-    return _warp("warp_planes", torch.stack(tuple(planes), dim=1), u, v)
+    if not isinstance(planes, (list, tuple)):
+        raise TypeError(f"planes: expected a list or a tuple, got "
+                        f"{type(planes).__name__}")
+    if len(planes) != 3:
+        raise ValueError(f"planes: expected 3, got {len(planes)}")
+    I1, I1x, I1y = planes
+    if I1.dim() != 3:
+        raise ValueError(f"I1: expected [B, H, W], got {tuple(I1.shape)}")
+    ts = (I1, I1x, I1y, u, v)
+    check_planes(ts, _PLANE_NAMES, I1.shape)
+    if I1.is_cpu:
+        return dis._warp_planes_plain(planes, u, v)
+    B, H, W = I1.shape
+    out = I1.new_empty((B, 3, H, W))
+    launch("warp_planes", "ff_warp_planes", I1, I1.data_ptr(),
+           I1x.data_ptr(), I1y.data_ptr(), u.data_ptr(), v.data_ptr(),
+           out.data_ptr(), B, H, W)
+    return out
 
 
 def sample_patches(img: torch.Tensor, pu: torch.Tensor, pv: torch.Tensor,

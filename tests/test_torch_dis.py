@@ -457,6 +457,57 @@ def test_wrappers_validate_inputs():
         warp.warp_planes([img, img, img], c, c)
 
 
+def _planes_case(name):
+    """(planes, u, v, expected exception) of one K5 wrapper contract case:
+    the planes as a list or a tuple of three, or a violation."""
+    g = torch.Generator().manual_seed(9)
+    p = [torch.randn((2, 12, 16), generator=g) for _ in range(3)]
+    u = torch.randn((2, 12, 16), generator=g) * 3
+    v = torch.randn((2, 12, 16), generator=g) * 3
+    cases = {
+        "list": (p, None),
+        "tuple": (tuple(p), None),
+        "shapes differ": ([p[0], p[1], p[2][:, :11].contiguous()], ValueError),
+        "dtypes differ": ([p[0], p[1].double(), p[2]], TypeError),
+        "devices differ": ([p[0], p[1].to("meta"), p[2]], ValueError),
+        "non-contiguous": ([p[0], p[1].transpose(1, 2).contiguous()
+                            .transpose(1, 2), p[2]], ValueError),
+        "two planes": (p[:2], ValueError),
+        "four planes": (p + [p[0]], ValueError),
+        "stacked tensor": (torch.stack(p, 1), TypeError),
+        "flow shape": (p, ValueError),
+    }
+    planes, exc = cases[name]
+    if name == "flow shape":
+        u = u[:, :11].contiguous()
+    return planes, u, v, exc
+
+
+@pytest.mark.parametrize("name", [
+    "list", "tuple", "shapes differ", "dtypes differ", "devices differ",
+    "non-contiguous", "two planes", "four planes", "stacked tensor",
+    "flow shape"])
+def test_warp_planes_wrapper_contract(name):
+    """K5's wrapper takes a list or a tuple of three [B, H, W] planes, each
+    read where it lies (no stack): planes that differ in shape, dtype or
+    device, a non-contiguous plane, another plane count or a flow of
+    another shape raise; the CPU route equals the twin and launches
+    nothing."""
+    from funscript_flow_tpu_torch.ops import cuda as kcuda
+
+    planes, u, v, exc = _planes_case(name)
+    if exc is not None:
+        with pytest.raises(exc):
+            warp.warp_planes(planes, u, v)
+        return
+    kcuda.reset_launches()
+    got = warp.warp_planes(planes, u, v)
+    assert kcuda.launch_counts()["warp_planes"] == 0
+    assert got.shape == (2, 3, 12, 16)
+    assert torch.equal(got, tfb.warp_bilinear(torch.stack(planes, 1), u, v))
+    assert torch.equal(got, tdis._warp_planes_plain(planes, u, v))
+
+
 def test_sample_patches_validates_inputs():
     img = torch.zeros((2, 16, 16))
     off = torch.zeros((2, 3, 3))
@@ -544,4 +595,4 @@ def test_warp_planes_kernel_matches_twin(cuda_device, size):
     assert kcuda.launch_counts()["warp_bilinear"] == 0
     want = tfb.warp_bilinear(torch.stack(planes, 1), u, v)
     torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got, want)
