@@ -28,6 +28,7 @@ from ..ops.reductions import (
     radial_motion_weighted,
     smooth_centers,
 )
+from ..utils.logging import span
 
 __all__ = ["PipelineConfig", "rgb_to_gray_cv", "flow_chunk_program",
            "upload_window", "FlowAnalyzer", "StreamingFlowAnalyzer"]
@@ -217,12 +218,18 @@ class StreamingFlowAnalyzer:
     single-device path, because every emitted pair sees the same halo'd
     frame window either way. Mutually exclusive with ``device``; a mesh
     dispatches no ramp window and no tail ramp-down.
+
+    ``timers``: optional ``utils.logging.StageTimers``. Each window's
+    upload, program and copy-back run in the spans ``ff.window.upload``,
+    ``ff.window.program`` and ``ff.window.wait`` (``utils.logging.span``),
+    whose wall times add to its ``upload``, ``program`` and ``wait``
+    stages.
     """
 
     KEYS = KEYS
 
     def __init__(self, cfg: PipelineConfig | None = None, device=None,
-                 n_pairs_total: int | None = None, mesh=None):
+                 n_pairs_total: int | None = None, mesh=None, timers=None):
         if mesh is not None and device is not None:
             raise ValueError("pass either a mesh or a device, not both")
         self.cfg = cfg or PipelineConfig()
@@ -231,6 +238,7 @@ class StreamingFlowAnalyzer:
             default_device(device)
         self._D = 1 if mesh is None else len(self.mesh)
         self._n_total = n_pairs_total
+        self._timers = timers
         self.radius = CENTER_SMOOTH_RADIUS
         self._buf: list = []   # pending frames
         self._base = 0         # absolute frame index of _buf[0]
@@ -270,15 +278,18 @@ class StreamingFlowAnalyzer:
             n_valid.append(b - a)
             spans.append((sd - a, ed - a))
         if self.mesh is None:
-            res = [flow_chunk_program(
-                upload_window(windows[0], bucket + 2 * r + 1, self.device),
-                n_valid[0], self.cfg)]
+            with span("ff.window.upload", self._timers):
+                frames = upload_window(windows[0], bucket + 2 * r + 1,
+                                       self.device)
+            with span("ff.window.program", self._timers):
+                res = [flow_chunk_program(frames, n_valid[0], self.cfg)]
         else:
             # imported here: parallel.dp imports this module
             from ..parallel.dp import analyze_windows_sharded
 
-            res = analyze_windows_sharded(windows, n_valid, self.cfg,
-                                          self.mesh[: len(windows)])
+            with span("ff.window.program", self._timers):
+                res = analyze_windows_sharded(windows, n_valid, self.cfg,
+                                              self.mesh[: len(windows)])
         self.windows_dispatched += len(res)
         self._pending.extend((rd, lo, hi) for rd, (lo, hi) in zip(res, spans))
         self._s = e
@@ -294,7 +305,8 @@ class StreamingFlowAnalyzer:
             res, lo, hi = self._pending.pop(0)
             if hi <= lo:
                 continue
-            np_res = _to_host(res)
+            with span("ff.window.wait", self._timers):
+                np_res = _to_host(res)
             out.append({k: np_res[k][lo:hi] for k in KEYS})
         return out
 

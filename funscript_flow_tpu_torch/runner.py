@@ -25,6 +25,14 @@ N devices (``parallel.dp``) and its long signal over the same devices
 once (:func:`resolve_clip_workers`), each worker on its own CUDA stream;
 ``--checkpoint`` resumes a killed clip (``io.checkpoint``);
 ``--profile_dir`` traces the analysis loop (``utils.logging``).
+
+Spans (``utils.logging.span``; in a ``torch.profiler`` trace while one
+runs, and totalled in the clip's ``Stage timers`` line): ``ff.clip``
+around a clip, holding ``ff.clip.setup`` (open, metadata, checkpoint,
+analyzer), ``ff.decode_wait`` per frame pull, the analyzer's
+``ff.window.upload`` / ``ff.window.program`` / ``ff.window.wait`` per
+window, ``ff.signal_chain`` (inside :func:`compute_actions`) and
+``ff.clip.write``.
 """
 
 from __future__ import annotations
@@ -50,13 +58,16 @@ from .ops.reductions import CENTER_SMOOTH_RADIUS
 from .ops.signal import DISCONTINUITY_THRESHOLD, signal_chain_device
 from .parallel.mesh import make_mesh
 from .parallel.signal_sp import signal_chain_sharded
-from .utils.logging import StageTimers, profile_trace
+from .utils.logging import StageTimers, profile_trace, span
 from .utils.params import Params
 from .utils.strings import STRINGS
 
 __all__ = ["process_video", "run_headless", "compute_actions",
            "resolve_clip_workers", "NativeDecodeUnavailable",
            "AUTO_DEVICE_MIN_SAMPLES"]
+
+# the clip's stages in its ``Stage timers`` line: the spans' wall times
+STAGES = ("decode_wait", "upload", "program", "wait", "signal_chain", "write")
 
 # ~36 min of 30 fps samples: below this the exact float64 host chain is
 # used; at or above it, a clean signal runs on the device chain
@@ -68,7 +79,8 @@ class NativeDecodeUnavailable(RuntimeError):
 
 
 def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
-                    log_func=lambda m: None, device=None, mesh=None):
+                    log_func=lambda m: None, device=None, mesh=None,
+                    timers=None):
     """Whole-video signal chain -> (funscript actions, norm curve).
 
     Window sizes derive from the effective fps (reference :1287, :1335).
@@ -79,53 +91,59 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
     when ``mesh`` lists more than one device and the signal is longer than
     ``detrend_win``, on the time-axis-sharded chain over those devices
     (``parallel.signal_sp``); ``'device'`` forces the one-device chain,
-    ``'host'`` the host chain.
+    ``'host'`` the host chain. It runs in the span ``ff.signal_chain``
+    (``utils.logging.span``), whose wall time adds to the ``signal_chain``
+    stage of ``timers``.
     """
-    n = len(dots)
-    detrend_win = int(params.detrend_window * effective_fps)
-    norm_win = int(params.norm_window * effective_fps)
+    with span("ff.signal_chain", timers):
+        n = len(dots)
+        detrend_win = int(params.detrend_window * effective_fps)
+        norm_win = int(params.norm_window * effective_fps)
 
-    backend = params.signal_backend
-    if backend == "auto":
-        backend = "host"
-        if n >= AUTO_DEVICE_MIN_SAMPLES and detrend_win >= 2:
-            cum = signal_host.integrate_flow(dots, cuts)
-            if not (np.abs(np.diff(cum)) > DISCONTINUITY_THRESHOLD).any():
-                backend = "sharded" if (mesh is not None and len(mesh) > 1
-                                        and n > detrend_win) else "device"
+        backend = params.signal_backend
+        if backend == "auto":
+            backend = "host"
+            if n >= AUTO_DEVICE_MIN_SAMPLES and detrend_win >= 2:
+                cum = signal_host.integrate_flow(dots, cuts)
+                if not (np.abs(np.diff(cum))
+                        > DISCONTINUITY_THRESHOLD).any():
+                    backend = "sharded" if (
+                        mesh is not None and len(mesh) > 1
+                        and n > detrend_win) else "device"
 
-    if backend == "host":
-        log_func(f"Signal chain: host ({n} samples).")
-        return signal_host.signal_chain(
-            dots, cuts, time_stamps, fps, detrend_win, norm_win,
-            params.keyframe_reduction,
-        )[0:2]
+        if backend == "host":
+            log_func(f"Signal chain: host ({n} samples).")
+            return signal_host.signal_chain(
+                dots, cuts, time_stamps, fps, detrend_win, norm_win,
+                params.keyframe_reduction,
+            )[0:2]
 
-    if backend == "sharded":
-        log_func(f"Signal chain: time-axis sharded over {len(mesh)} "
-                 f"devices ({n} samples).")
-        norm, mask = signal_chain_sharded(
-            np.asarray(dots, np.float32), np.asarray(cuts, bool), mesh,
-            detrend_win, norm_win)
-        norm = norm.astype(np.float64)
-    else:
-        dev = default_device(device)
-        log_func(f"Signal chain: device ({n} samples on {dev}).")
-        if n == 0:
-            return [], np.zeros(0, np.float64)
-        norm, mask = signal_chain_device(
-            torch.as_tensor(np.asarray(dots, np.float32), device=dev),
-            torch.as_tensor(np.asarray(cuts, bool), device=dev),
-            n, detrend_win, norm_win)
-        norm = norm.cpu().numpy().astype(np.float64)
-        mask = mask.cpu().numpy()
-    if not params.keyframe_reduction:
-        idx = range(n)
-    elif n == 1:
-        idx = [0, 0]  # reference quirk (:1367, :1374)
-    else:
-        idx = np.nonzero(mask)[0]
-    return signal_host.actions_at(idx, norm, time_stamps, fps, log_func), norm
+        if backend == "sharded":
+            log_func(f"Signal chain: time-axis sharded over {len(mesh)} "
+                     f"devices ({n} samples).")
+            norm, mask = signal_chain_sharded(
+                np.asarray(dots, np.float32), np.asarray(cuts, bool), mesh,
+                detrend_win, norm_win)
+            norm = norm.astype(np.float64)
+        else:
+            dev = default_device(device)
+            log_func(f"Signal chain: device ({n} samples on {dev}).")
+            if n == 0:
+                return [], np.zeros(0, np.float64)
+            norm, mask = signal_chain_device(
+                torch.as_tensor(np.asarray(dots, np.float32), device=dev),
+                torch.as_tensor(np.asarray(cuts, bool), device=dev),
+                n, detrend_win, norm_win)
+            norm = norm.cpu().numpy().astype(np.float64)
+            mask = mask.cpu().numpy()
+        if not params.keyframe_reduction:
+            idx = range(n)
+        elif n == 1:
+            idx = [0, 0]  # reference quirk (:1367, :1374)
+        else:
+            idx = np.nonzero(mask)[0]
+        return (signal_host.actions_at(idx, norm, time_stamps, fps, log_func),
+                norm)
 
 
 def _decode_shards(params: Params) -> int:
@@ -270,94 +288,107 @@ def process_video(video_path: str, params: Params, log_func,
         if preopened is not None:
             preopened[1].close()
         raise
-    _no_tf32()
-    start_time = time.time()
-    output_path = funscript_path(video_path)
-    if os.path.exists(output_path) and not params.overwrite:
-        if preopened is not None:
-            preopened[1].close()
-        log_func(STRINGS["skipping_file_exists"].format(
-            video_path=video_path, output_path=output_path))
-        return False
+    with span("ff.clip"):
+        return _process_clip(video_path, params, log_func, progress_callback,
+                             cancel_flag, preopened, dev, mesh)
 
-    try:
-        log_func(f"Processing video: {video_path}")
-        if preopened is not None:
-            meta, source = preopened
-        else:
-            meta, source = _open_video(video_path, params, cancel_flag)
-    except Exception as e:
-        log_func(_open_error(video_path, e))
-        return True
-    note = _decode_note(source, params)
-    if note:
-        log_func(note)
 
-    n_samples = len(meta.sampled_indices)
-    log_func(
-        f"FPS: {meta.fps:.2f}; downsampled to ~{meta.effective_fps:.2f} fps; "
-        f"{n_samples} frames selected."
-    )
-    preset = f" ({params.dis_preset})" if params.backend == "DIS" else ""
-    log_func(f"Using backend: {params.backend}{preset} on {dev}")
-    if n_samples < 2:
-        source.close()
-        log_func(STRINGS["video_too_short"].format(n=n_samples))
-        return True
-    if mesh is not None:
-        log_func(STRINGS["mesh_devices"].format(n=len(mesh),
-                                                platform=dev.type))
+def _process_clip(video_path, params: Params, log_func, progress_callback,
+                  cancel_flag, preopened, dev, mesh) -> bool:
+    """:func:`process_video` past its device check."""
+    timers = StageTimers()
+    with span("ff.clip.setup"):
+        _no_tf32()
+        start_time = time.time()
+        output_path = funscript_path(video_path)
+        if os.path.exists(output_path) and not params.overwrite:
+            if preopened is not None:
+                preopened[1].close()
+            log_func(STRINGS["skipping_file_exists"].format(
+                video_path=video_path, output_path=output_path))
+            return False
 
-    cfg = PipelineConfig(
-        pov_mode=params.pov_mode,
-        cut_threshold=params.cut_threshold,
-        pair_batch=params.pair_batch,
-        flow_algorithm="dis" if params.backend == "DIS" else "farneback",
-        dis_preset=params.dis_preset,
-    )
-    n_pairs_total = n_samples - 1
-
-    # --- intra-video checkpoint / resume (io.checkpoint docstring) ---
-    # (the analyzer is built after the resume decision, so that it knows
-    # its local pair total, against which the tail ramp-down schedules)
-    ckpt_path = ckpt_fp = None
-    prefix_dots = np.zeros(0, np.float32)
-    prefix_cuts = np.zeros(0, bool)
-    resume_base = 0  # absolute pair index of the analyzer's local pair 0
-    discard = 0      # local pairs that repeat the prefix (the halo recompute)
-    if params.checkpoint:
-        ckpt_path = ckpt_mod.sidecar_path(output_path)
         try:
-            # the engine of the open source, not of the params: only the
-            # source knows whether the codec took the fast engine, and the
-            # two engines' frames differ
-            engine = "fast" if getattr(source, "is_fast", False) else "exact"
-            ckpt_fp = ckpt_mod.fingerprint(video_path, meta, params, dev,
-                                           engine=engine)
-        except OSError:
-            ckpt_path = None
-        loaded = ckpt_mod.load(ckpt_path, ckpt_fp) if ckpt_path else None
-        if loaded is not None:
-            start_pair = min(len(loaded[0]), n_pairs_total)
-            # restart r pairs early: pairs >= start_pair need the centers of
-            # pairs down to start_pair - r for the +-r temporal smoothing;
-            # everything before that is independent per pair
-            resume_base = max(0, start_pair - CENTER_SMOOTH_RADIUS)
-            discard = start_pair - resume_base
-            prefix_dots = loaded[0][:start_pair]
-            prefix_cuts = loaded[1][:start_pair]
-            log_func(STRINGS["resuming_checkpoint"].format(
-                done=start_pair, total=n_pairs_total, halo=discard))
-            source.close()  # it was opened at sample 0 (maybe preopened)
+            log_func(f"Processing video: {video_path}")
+            if preopened is not None:
+                meta, source = preopened
+            else:
+                meta, source = _open_video(video_path, params, cancel_flag)
+        except Exception as e:
+            log_func(_open_error(video_path, e))
+            return True
+        note = _decode_note(source, params)
+        if note:
+            log_func(note)
+
+        n_samples = len(meta.sampled_indices)
+        log_func(
+            f"FPS: {meta.fps:.2f}; downsampled to "
+            f"~{meta.effective_fps:.2f} fps; {n_samples} frames selected."
+        )
+        preset = f" ({params.dis_preset})" if params.backend == "DIS" else ""
+        log_func(f"Using backend: {params.backend}{preset} on {dev}")
+        if n_samples < 2:
+            source.close()
+            log_func(STRINGS["video_too_short"].format(n=n_samples))
+            return True
+        if mesh is not None:
+            log_func(STRINGS["mesh_devices"].format(n=len(mesh),
+                                                    platform=dev.type))
+
+        cfg = PipelineConfig(
+            pov_mode=params.pov_mode,
+            cut_threshold=params.cut_threshold,
+            pair_batch=params.pair_batch,
+            flow_algorithm="dis" if params.backend == "DIS" else "farneback",
+            dis_preset=params.dis_preset,
+        )
+        n_pairs_total = n_samples - 1
+
+        # --- intra-video checkpoint / resume (io.checkpoint docstring) ---
+        # (the analyzer is built after the resume decision, so that it
+        # knows its local pair total, against which the tail ramp-down
+        # schedules)
+        ckpt_path = ckpt_fp = None
+        prefix_dots = np.zeros(0, np.float32)
+        prefix_cuts = np.zeros(0, bool)
+        resume_base = 0  # absolute pair index of the analyzer's local pair 0
+        discard = 0      # local pairs that repeat the prefix (halo recompute)
+        if params.checkpoint:
+            ckpt_path = ckpt_mod.sidecar_path(output_path)
             try:
-                _, source = _open_video(video_path, params, cancel_flag,
-                                        start_sample=resume_base)
-            except Exception as e:
-                log_func(_open_error(video_path, e))
-                return True
-    analyzer = StreamingFlowAnalyzer(
-        cfg, device=None if mesh is not None else dev, mesh=mesh,
-        n_pairs_total=n_pairs_total - resume_base)
+                # the engine of the open source, not of the params: only
+                # the source knows whether the codec took the fast engine,
+                # and the two engines' frames differ
+                engine = ("fast" if getattr(source, "is_fast", False)
+                          else "exact")
+                ckpt_fp = ckpt_mod.fingerprint(video_path, meta, params, dev,
+                                               engine=engine)
+            except OSError:
+                ckpt_path = None
+            loaded = ckpt_mod.load(ckpt_path, ckpt_fp) if ckpt_path else None
+            if loaded is not None:
+                start_pair = min(len(loaded[0]), n_pairs_total)
+                # restart r pairs early: pairs >= start_pair need the
+                # centers of pairs down to start_pair - r for the +-r
+                # temporal smoothing; everything before that is independent
+                # per pair
+                resume_base = max(0, start_pair - CENTER_SMOOTH_RADIUS)
+                discard = start_pair - resume_base
+                prefix_dots = loaded[0][:start_pair]
+                prefix_cuts = loaded[1][:start_pair]
+                log_func(STRINGS["resuming_checkpoint"].format(
+                    done=start_pair, total=n_pairs_total, halo=discard))
+                source.close()  # it was opened at sample 0 (maybe preopened)
+                try:
+                    _, source = _open_video(video_path, params, cancel_flag,
+                                            start_sample=resume_base)
+                except Exception as e:
+                    log_func(_open_error(video_path, e))
+                    return True
+        analyzer = StreamingFlowAnalyzer(
+            cfg, device=None if mesh is not None else dev, mesh=mesh,
+            n_pairs_total=n_pairs_total - resume_base, timers=timers)
     results = []
     last_ckpt_pairs = len(prefix_dots)
 
@@ -380,7 +411,6 @@ def process_video(video_path: str, params: Params, log_func,
             ckpt_save()  # cancel -> resumable
         return False
 
-    timers = StageTimers()
     # Priming: one device's first pull carries the ramp window plus its
     # halo, so the card starts as soon as a small first window has decoded;
     # a mesh's first pull carries one whole window per device plus the
@@ -395,20 +425,19 @@ def process_video(video_path: str, params: Params, log_func,
             while True:
                 if cancel_flag is not None and cancel_flag():
                     return cancelled()
-                with timers.stage("decode_wait"):
+                with span("ff.decode_wait", timers):
                     batch = source.get_batch(next_pull)
                     next_pull = pull
-                with timers.stage("device_compute"):
-                    if batch:
-                        results.extend(analyzer.push(batch))
-                    else:
-                        if cancel_flag is not None and cancel_flag():
-                            # the source polls the flag too and ends its
-                            # stream when it fires: an empty batch here may
-                            # be a cancel, not EOF
-                            return cancelled()
-                        results.extend(analyzer.flush())
-                        break
+                if batch:
+                    results.extend(analyzer.push(batch))
+                else:
+                    if cancel_flag is not None and cancel_flag():
+                        # the source polls the flag too and ends its stream
+                        # when it fires: an empty batch here may be a
+                        # cancel, not EOF
+                        return cancelled()
+                    results.extend(analyzer.flush())
+                    break
                 if ckpt_path is not None:
                     # cadence in dispatched pairs; a due checkpoint drains
                     # the pending windows so that the sidecar holds them
@@ -445,11 +474,12 @@ def process_video(video_path: str, params: Params, log_func,
     error_occurred = False
     actions, _norm = compute_actions(
         dots, cuts, time_stamps, meta.fps, meta.effective_fps, params,
-        log_func, device=dev, mesh=mesh,
+        log_func, device=dev, mesh=mesh, timers=timers,
     )
     log_func(f"Keyframe reduction: {len(actions)} actions computed.")
     try:
-        write_funscript(output_path, actions)
+        with span("ff.clip.write", timers):
+            write_funscript(output_path, actions)
         log_func(STRINGS["funscript_saved"].format(output_path=output_path))
         if ckpt_path is not None:
             ckpt_mod.clear(ckpt_path)  # done: the funscript is the result
@@ -460,10 +490,8 @@ def process_video(video_path: str, params: Params, log_func,
     if progress_callback is not None:
         progress_callback(100)
     t = timers.report()
-    log_func(
-        f"Stage timers: decode_wait={t.get('decode_wait', 0):.2f}s "
-        f"device_compute={t.get('device_compute', 0):.2f}s"
-    )
+    log_func("Stage timers: " + " ".join(
+        f"{k}={t.get(k, 0.0):.3f}s" for k in STAGES))
     log_func(f"Processing time: {time.time() - start_time:.2f} seconds")
     return error_occurred
 

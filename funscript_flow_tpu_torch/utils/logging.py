@@ -3,8 +3,11 @@
 Mirrors the reference's observability surface (SURVEY.md §5): a log callback
 threaded through the pipeline, per-run timestamped log files
 (``logs/YYYYmmdd_HHMMSS.log``, reference :1619-1625) and stdout tee for
-headless runs (:2606-2616), plus per-stage wall-clock timers (decode wait vs
-device compute) and a ``torch.profiler`` trace hook (``--profile_dir``).
+headless runs (:2606-2616), plus the program's spans (:class:`span`): each
+adds its wall time to a per-stage total (:class:`StageTimers`, the runner's
+``Stage timers`` line) and, while a ``torch.profiler`` profile runs, lands
+in its trace beside the device's kernels and copies; and a
+``torch.profiler`` trace hook (``--profile_dir``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ import threading
 import time
 from datetime import datetime
 
-__all__ = ["RunLogger", "StageTimers", "profile_trace"]
+import torch
+
+__all__ = ["RunLogger", "StageTimers", "span", "profile_trace"]
 
 
 class RunLogger:
@@ -50,25 +55,54 @@ class RunLogger:
 
 
 class StageTimers:
-    """Accumulating wall-clock timers per pipeline stage.
-
-    Usage: ``with timers.stage("decode_wait"): ...``; ``timers.report()``
-    returns {stage: seconds}.
-    """
+    """Accumulating wall-clock totals per pipeline stage, fed by
+    :class:`span`; ``report()`` returns {stage: seconds}."""
 
     def __init__(self):
         self.totals: dict = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
+    def add(self, stage: str, seconds: float) -> None:
+        self.totals[stage] = self.totals.get(stage, 0.0) + seconds
 
     def report(self) -> dict:
         return dict(self.totals)
+
+
+class span:
+    """``with span("ff.window.upload", timers): ...``: one span of the
+    program.
+
+    While a ``torch.profiler`` profile runs, the span is a
+    ``record_function(name)``: it lands in the same trace as the device's
+    kernels and copies, on the profiler's clock, and nests under the spans
+    open on the calling thread. With ``timers``, its wall time is added to
+    the stage named by the last dotted part of ``name``
+    (``ff.window.upload`` -> ``upload``). With no profile running it
+    builds no ``record_function``: a flag check, and the two clock reads
+    when ``timers`` is given. Spans sit at layer boundaries (a few per
+    window and per clip), never per launch."""
+
+    __slots__ = ("name", "timers", "_t0", "_rf")
+
+    def __init__(self, name: str, timers: StageTimers | None = None):
+        self.name, self.timers = name, timers
+
+    def __enter__(self):
+        self._rf = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if self.timers is not None:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.timers is not None:
+            self.timers.add(self.name.rsplit(".", 1)[-1],
+                            time.perf_counter() - self._t0)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
 
 
 # held while a trace runs: the profiler is process-wide, as jax.profiler is
@@ -91,7 +125,6 @@ def profile_trace(log_dir: str | None):
         raise RuntimeError("Profile has already been started. Only one "
                            "profile may be run at a time.")
     try:
-        import torch
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
