@@ -58,6 +58,13 @@ when any phase fails. Phases, in order:
    the clip through ``process_video`` once each, with the checks of 6
    (launches per window 78/0/3 and 26/0/0 for sample_patches/sample_abs/
    warp_planes), then kernels vs plain on their first two windows;
+7c. a replayed window of each flow algorithm, traced: the flow program's
+   CUDA graph of a full window (``models.pipeline.WindowGraphs``) is
+   captured, then one replay runs under torch.profiler; the hand kernels'
+   device events in it, counted by name (``TRACE_NAMES``), must equal
+   what the replay added to the launch counts, and those the expected
+   counts per window: the counts of a replayed window come from the
+   capture's tally, so this is where they are held to the card;
 8. device signal chain: a one-hour signal (108,000 samples at 30 fps)
    through ``compute_actions`` with ``signal_backend="auto"`` on the card,
    checked against the host chain (within 0.5 of its 0-100 curve);
@@ -115,7 +122,7 @@ when any phase fails. Phases, in order:
    launch rate of small eager ops from 1 and from 3 threads;
 14. one JSON line listing the kernels, then the contract line.
 
-Every line of phases 7b and 8b-12 ends with the card's name and power
+Every line of phases 7b, 7c and 8b-12 ends with the card's name and power
 limit.
 
 Imports nothing of JAX; data is made from ``SEED`` on the card (the file
@@ -1042,6 +1049,62 @@ HAND_KERNELS = ("poly_exp_kernel", "warp_bilinear_kernel",
                 "sample_kernel<false", "warp_planes_kernel")
 
 
+# each launch count's kernel as the profiler names it
+TRACE_NAMES = {"poly_exp": "poly_exp_kernel",
+               "warp_bilinear": "warp_bilinear_kernel",
+               "box_blur_solve": "box_blur_solve_kernel",
+               "sample_patches": "sample_kernel<true",
+               "sample_abs": "sample_kernel<false",
+               "warp_planes": "warp_planes_kernel"}
+
+
+def graph_trace_phase(torch, dev, card, frames, algorithm: str) -> None:
+    """One full window of ``algorithm`` through a CUDA graph of the flow
+    program: captured, replayed once warm, then replayed under
+    torch.profiler. The hand kernels' device events of the traced replay,
+    by name, must equal what it added to ``launch_counts()`` and the
+    expected counts per window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from funscript_flow_tpu_torch.models.pipeline import (PipelineConfig,
+                                                          WindowGraphs)
+    from funscript_flow_tpu_torch.ops import cuda as kcuda
+
+    cfg = PipelineConfig(flow_algorithm=algorithm)
+    graphs = WindowGraphs()
+    gset = graphs.lease(cfg, dev)
+    host = torch.from_numpy(np.stack(frames[: B_MAIN + 1])).pin_memory()
+    for replay in (False, True):  # eager and captured, then a warm replay
+        got = gset.run(gset.load(host), B_MAIN)[1]
+        check(got is replay, f"graph {algorithm}: replayed {got}, "
+                             f"expected {replay}")
+    torch.cuda.synchronize()
+    kcuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        check(gset.run(gset.load(host), B_MAIN)[1],
+              f"graph {algorithm}: the traced window was not replayed")
+        torch.cuda.synchronize()
+    counts = kcuda.launch_counts()
+    graphs.release(gset)
+    events = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+    traced = {k: sum(TRACE_NAMES[k] in n for n in events)
+              for k in KERNEL_META}
+    tally = {k: counts.get(k, 0) for k in KERNEL_META}
+    want = {k: EXPECTED_PER_WINDOW[algorithm].get(k, 0) for k in KERNEL_META}
+    check(sum(traced.values()) > 0,
+          f"graph {algorithm}: no hand kernel in the replay's trace "
+          f"({len(events)} device events)")
+    check(traced == tally == want,
+          f"graph {algorithm}: a replayed window's hand kernels in the "
+          f"trace {traced}, counted {tally}, expected {want}")
+    print(f"graph {algorithm}: a replayed {B_MAIN}-pair window ran "
+          f"{len(events)} device events; hand kernels in the trace "
+          f"{traced} = counted = expected ({card})")
+
+
 def profile_window(torch, dev, frames, out_dir: str, algorithm: str) -> None:
     """Where one full window's time goes: the flow program on 253 frames
     (252 pairs), timed with CUDA events for kernels="auto" and "plain",
@@ -1826,6 +1889,8 @@ def main(argv=None) -> int:
             print(f"kernels vs plain {algorithm}, first two windows: "
                   f"max abs diff {diff}")
         dis_presets_phase(torch, dev, card, frames)
+        for algorithm in ("farneback", "dis"):
+            graph_trace_phase(torch, dev, card, frames, algorithm)
         signal = signal_chain_phase(torch, dev)
         if probe["pump"]["built"]:
             file_phase(torch, dev, card)

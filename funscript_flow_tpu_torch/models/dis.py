@@ -34,6 +34,7 @@ path (the dense sampler replaced it) and is not ported.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -311,6 +312,16 @@ def variational_refinement(I0, I1, u, v, cfg: DISConfig):
     return u + du, v + dv
 
 
+@functools.lru_cache(maxsize=None)
+def _patch_centres(n: int, stride: int, ps: int,
+                   device: torch.device) -> torch.Tensor:
+    """The patch grid's centre index along one axis, ``i*stride + ps//2``
+    (int64), built once per device: a copy from the host in every call
+    would wait for the device, and could not be captured into a CUDA
+    graph."""
+    return torch.from_numpy(np.arange(n) * stride + ps // 2).to(device)
+
+
 def _dis_level(I0, I1, u, v, cfg: DISConfig):
     """One pyramid level: patch inverse search + densification.
 
@@ -336,8 +347,8 @@ def _dis_level(I0, I1, u, v, cfg: DISConfig):
     idet = 1.0 / (h11 * h22 - h12 * h12)
 
     # init patch offsets from the incoming dense flow at patch centers
-    cy = torch.from_numpy(np.arange(ny) * st + ps // 2).to(dev)
-    cx = torch.from_numpy(np.arange(nx) * st + ps // 2).to(dev)
+    cy = _patch_centres(ny, st, ps, dev)
+    cx = _patch_centres(nx, st, ps, dev)
     pu = u.index_select(1, cy).index_select(2, cx)
     pv = v.index_select(1, cy).index_select(2, cx)
 

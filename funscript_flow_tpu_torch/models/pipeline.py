@@ -9,10 +9,19 @@ Chunking contract (fixes the reference's chunk-boundary defects, SURVEY.md
 halo on each side, so the flow pair spanning two chunks is computed and the
 +/-6-pair center smoothing only truncates at true video edges. Results are
 bitwise independent of the batch size and of the dispatch partition.
+
+On a CUDA device, ``StreamingFlowAnalyzer`` runs the program through CUDA
+graphs (:class:`WindowGraphs`), one per window shape: the first window of
+a shape runs eagerly and the program is captured after it; every later
+window of that shape is a copy into the graph's static input and one
+replay of the same kernels in the same order, so its results are bitwise
+those of the eager program.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,6 +30,7 @@ import torch
 from .. import default_device
 from ..ops.farneback import FarnebackConfig, farneback_flow_planes
 from .dis import DISConfig, dis_flow_planes
+from ..ops.cuda._build import add_launches, captured_launches
 from ..ops.reductions import (
     CENTER_SMOOTH_RADIUS,
     max_divergence_center,
@@ -31,7 +41,8 @@ from ..ops.reductions import (
 from ..utils.logging import span
 
 __all__ = ["PipelineConfig", "rgb_to_gray_cv", "flow_chunk_program",
-           "upload_window", "FlowAnalyzer", "StreamingFlowAnalyzer"]
+           "stage_window", "upload_window", "WindowGraphs", "FlowAnalyzer",
+           "StreamingFlowAnalyzer"]
 
 ANALYSIS_SIZE = 256  # reference analyses at 256x256 gray (FunscriptFlow.pyw:1057)
 KEYS = ("dots", "cuts", "centers", "mean_mag", "val_pos")
@@ -82,8 +93,14 @@ def rgb_to_gray_cv(rgb: torch.Tensor) -> torch.Tensor:
     return y.to(torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _pov_center(w: int, h: int, device: torch.device) -> torch.Tensor:
+    """The fixed bottom-center [1, 2] of POV mode, built once per device."""
+    return torch.tensor([[w // 2, h - 1]], dtype=torch.float32, device=device)
+
+
 @torch.inference_mode()
-def flow_chunk_program(frames: torch.Tensor, n_pairs: int,
+def flow_chunk_program(frames: torch.Tensor, n_pairs,
                        cfg: PipelineConfig) -> dict:
     """frames [B+1, H, W] uint8 gray (or [B+1, H, W, 3] RGB) on the device,
     ``n_pairs`` valid-pair count -> dict(dots [B], cuts [B], centers [B,2],
@@ -92,7 +109,10 @@ def flow_chunk_program(frames: torch.Tensor, n_pairs: int,
     gray -> batched Farnebäck (or DIS) flow -> divergence-argmax centers (or
     fixed bottom-center in POV mode, reference :880-882) -> cut flags -> +/-6
     temporal center smoothing -> weighted radial projection. Pairs at or
-    past ``n_pairs`` are padding: their scalars are zeroed.
+    past ``n_pairs`` are padding: their scalars are zeroed. ``n_pairs``: an
+    int, or a 0-d int64 tensor on the device (a CUDA graph's static input);
+    the results are the same bit for bit. Nothing here copies from the host
+    or waits for the device, so the program can be captured.
     """
     gray = frames.to(torch.float32) if frames.dim() == 3 else rgb_to_gray_cv(frames)
     f0, f1 = gray[:-1], gray[1:]
@@ -104,8 +124,7 @@ def flow_chunk_program(frames: torch.Tensor, n_pairs: int,
     B, H, W = f0.shape
     dev = u.device
     if cfg.pov_mode:
-        centers = torch.tensor([[W // 2, H - 1]], dtype=torch.float32,
-                               device=dev).expand(B, 2)
+        centers = _pov_center(W, H, dev).expand(B, 2)
         val_pos = torch.zeros((B,), dtype=torch.float32, device=dev)
     else:
         centers, val_pos = max_divergence_center(u, v)
@@ -128,22 +147,196 @@ def flow_chunk_program(frames: torch.Tensor, n_pairs: int,
     }
 
 
-def upload_window(views, need: int, device: torch.device) -> torch.Tensor:
-    """The frames ``views`` padded to ``need`` with the last one, on
-    ``device``: assembled in pinned host memory when the device is a GPU
-    and copied up without blocking, on the caller's current stream (so the
-    caching host allocator records the stream that reads the buffer)."""
-    cuda = device.type == "cuda"
+def stage_window(views, need: int, pin: bool) -> torch.Tensor:
+    """The frames ``views`` padded to ``need`` with the last one, in host
+    memory (pinned with ``pin``)."""
     host = torch.empty((need,) + views[0].shape, dtype=torch.uint8,
-                       pin_memory=cuda)
+                       pin_memory=pin)
     arr = host.numpy()
     np.stack(views, out=arr[: len(views)])
     arr[len(views):] = arr[len(views) - 1]  # pad with the last frame
-    return host.to(device, non_blocking=cuda)
+    return host
+
+
+def upload_window(views, need: int, device: torch.device) -> torch.Tensor:
+    """:func:`stage_window` on ``device``: assembled in pinned host memory
+    when the device is a GPU and copied up without blocking, on the
+    caller's current stream (so the caching host allocator records the
+    stream that reads the buffer)."""
+    cuda = device.type == "cuda"
+    return stage_window(views, need, cuda).to(device, non_blocking=cuda)
 
 
 def _to_host(res: dict) -> dict:
     return {k: res[k].cpu().numpy() for k in KEYS}
+
+
+# one capture at a time in a process (captures are set-up, rare and short)
+_capture_lock = threading.Lock()
+
+
+class _WindowGraph:
+    """The flow program of one window shape, captured into a CUDA graph:
+    the static input (the frames and the valid-pair count), the graph,
+    its outputs, and the hand-kernel launches that each replay runs."""
+
+    def __init__(self, shape, cfg: PipelineConfig, device):
+        self.cfg = cfg
+        # normal tensors, updated in place in and out of inference mode
+        with torch.inference_mode(False):
+            self.frames = torch.empty(shape, dtype=torch.uint8, device=device)
+            self.n_valid = torch.zeros((), dtype=torch.int64, device=device)
+        self.graph = None
+        self.out: dict = {}
+        self.launches: dict = {}
+
+    @torch.inference_mode()
+    def run(self, n_valid: int, pool, side) -> tuple:
+        """(the program's ``KEYS`` outputs, whether a graph was replayed).
+        Uncaptured, the program runs eagerly for its result and is then
+        captured on the stream ``side`` into the memory pool ``pool``
+        (``None``: a new one); captured, the graph is replayed and its
+        outputs are cloned at once, since the next replay overwrites them
+        while this window's results wait to be copied back."""
+        self.n_valid.fill_(n_valid)
+        if self.graph is None:
+            res = flow_chunk_program(self.frames, self.n_valid, self.cfg)
+            self._capture(pool, side)
+            return {k: res[k] for k in KEYS}, False
+        self.graph.replay()
+        add_launches(self.launches)
+        return {k: self.out[k].clone() for k in KEYS}, True
+
+    def _capture(self, pool, side) -> None:
+        """Capture the program, one capture at a time. Thread-local
+        capture mode: other threads go on issuing work meanwhile. The
+        launches counted while capturing are the graph's (counted again
+        at each replay)."""
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock, torch.cuda.stream(side), \
+                captured_launches() as tally:
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = flow_chunk_program(self.frames, self.n_valid, self.cfg)
+            finally:
+                graph.capture_end()
+        self.graph, self.launches = graph, tally
+        self.out = {k: out[k] for k in KEYS}
+
+
+class _GraphSet:
+    """The flow program of one configuration on one CUDA device, captured
+    once per window shape. Its graphs share one memory pool and one
+    capture stream (the caching allocator reuses a block only on the
+    stream that freed it): a replay's intermediates may take memory that
+    another graph of the set also uses, so the set holds about its
+    largest window's pool rather than the sum of them. That is safe
+    because the set is leased to one caller at a time and its graphs run
+    one after another on that caller's stream, each replay's outputs
+    cloned before the next replay."""
+
+    def __init__(self, key, cfg: PipelineConfig, device: torch.device):
+        self.key, self.cfg, self.device = key, cfg, device
+        self.graphs: dict = {}  # window shape -> _WindowGraph
+        self.pool = None        # the first capture's pool, then shared
+        self._side = None       # the capture stream
+        self.stream = None      # the stream of the last window run
+
+    def follow(self, stream) -> None:
+        """Run the next windows on ``stream``, after the work of the last
+        one on another stream."""
+        if self.stream is not None and self.stream != stream:
+            stream.wait_stream(self.stream)
+        self.stream = stream
+
+    def load(self, host: torch.Tensor) -> _WindowGraph:
+        """The graph of the pinned window ``host``'s shape (a new one if
+        the set has none), its static input loaded with ``host`` without
+        blocking, behind the last replay that read it."""
+        self.follow(torch.cuda.current_stream(self.device))
+        shape = tuple(host.shape)
+        wg = self.graphs.get(shape)
+        if wg is None:
+            wg = self.graphs[shape] = _WindowGraph(shape, self.cfg,
+                                                   self.device)
+        wg.frames.copy_(host, non_blocking=True)
+        return wg
+
+    def run(self, wg: _WindowGraph, n_valid: int) -> tuple:
+        """:meth:`_WindowGraph.run` in this set's pool. A graph whose
+        capture or replay raised is dropped: the next window of its shape
+        starts anew."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        try:
+            out, replayed = wg.run(n_valid, self.pool, self._side)
+        except BaseException:
+            self.graphs = {s: g for s, g in self.graphs.items()
+                           if g is not wg}
+            raise
+        if self.pool is None:
+            self.pool = wg.graph.pool()
+        return out, replayed
+
+    def drop(self) -> None:
+        """Let the graphs go, once the card has run their last work."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        self.graphs, self.pool = {}, None
+
+
+class WindowGraphs:
+    """The captured flow programs of a process, a :class:`_GraphSet` per
+    (CUDA device, pipeline configuration), each leased to one caller at a
+    time, so no two windows share its static buffers at once. Callers
+    that run together (folder workers, each on a CUDA stream of its own)
+    get one each, and a later caller on another stream waits for the
+    last one's work on it first. So the sets of a configuration number
+    the most callers that ran it at once, whatever their streams.
+
+    A lease drops the idle sets of other configurations on its device
+    and returns their memory to the card: a process that changes a
+    setting (the GUI) would otherwise keep a set of every configuration
+    it ever ran. Two configurations run at once on one device may then
+    capture anew in each clip; the results are the same."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._idle: list = []  # [_GraphSet], the last released last
+
+    def lease(self, cfg: PipelineConfig, device: torch.device) -> _GraphSet:
+        """A set of ``cfg`` on ``device`` (its graphs captured or not),
+        for the caller's current stream, until :meth:`release`."""
+        key = (device, cfg)
+        with self._lock:
+            mine = next((s for s in reversed(self._idle) if s.key == key),
+                        None)
+            stale = [s for s in self._idle
+                     if s.key[0] == device and s.key != key]
+            self._idle = [s for s in self._idle
+                          if s is not mine and s not in stale]
+        if stale:
+            for s in stale:
+                s.drop()
+            torch.cuda.empty_cache()
+        if mine is None:
+            mine = _GraphSet(key, cfg, device)
+        mine.follow(torch.cuda.current_stream(device))
+        return mine
+
+    def release(self, graphs: _GraphSet) -> None:
+        with self._lock:
+            self._idle.append(graphs)
+
+    def __len__(self) -> int:
+        """The sets held and not leased."""
+        with self._lock:
+            return len(self._idle)
+
+
+# the process's graphs: kept across clips, so that only the first windows
+# of a shape and configuration in a process run eagerly
+GRAPHS = WindowGraphs()
 
 
 class FlowAnalyzer:
@@ -224,6 +417,15 @@ class StreamingFlowAnalyzer:
     ``ff.window.program`` and ``ff.window.wait`` (``utils.logging.span``),
     whose wall times add to its ``upload``, ``program`` and ``wait``
     stages.
+
+    On a CUDA device with no mesh, windows run through CUDA graphs, one
+    per window shape: the analyzer leases a set of them from the
+    process's (:data:`GRAPHS`) at its first window and returns it at
+    :meth:`flush` or :meth:`close`. The pinned window is copied straight
+    into the graph's static input and the graph is replayed.
+    ``windows_replayed`` and ``graphs_captured`` count this analyzer's
+    replays and captures; every other window ran eagerly. On the CPU and
+    over a mesh every window runs eagerly.
     """
 
     KEYS = KEYS
@@ -245,7 +447,12 @@ class StreamingFlowAnalyzer:
         self._s = 0            # next pair index to emit
         self._n_frames = 0
         self._pending: list = []  # (device result dict, lo, hi)
+        self._graphs = GRAPHS if (mesh is None and
+                                  self.device.type == "cuda") else None
+        self._set = None  # the graphs leased for this clip, if any
         self.windows_dispatched = 0
+        self.windows_replayed = 0
+        self.graphs_captured = 0
 
     def _tail_bucket(self, n_pairs: int) -> int:
         """Smallest power-of-two fraction of pair_batch (>= 16) covering the
@@ -277,10 +484,21 @@ class StreamingFlowAnalyzer:
             windows.append(self._buf[a - self._base : b - self._base + 1])
             n_valid.append(b - a)
             spans.append((sd - a, ed - a))
-        if self.mesh is None:
+        need = bucket + 2 * r + 1
+        if self._graphs is not None:
             with span("ff.window.upload", self._timers):
-                frames = upload_window(windows[0], bucket + 2 * r + 1,
-                                       self.device)
+                host = stage_window(windows[0], need, pin=True)
+                if self._set is None:
+                    self._set = self._graphs.lease(self.cfg, self.device)
+                wg = self._set.load(host)
+            with span("ff.window.program", self._timers):
+                out, replayed = self._set.run(wg, n_valid[0])
+                res = [out]
+            self.windows_replayed += replayed
+            self.graphs_captured += not replayed
+        elif self.mesh is None:
+            with span("ff.window.upload", self._timers):
+                frames = upload_window(windows[0], need, self.device)
             with span("ff.window.program", self._timers):
                 res = [flow_chunk_program(frames, n_valid[0], self.cfg)]
         else:
@@ -376,11 +594,21 @@ class StreamingFlowAnalyzer:
         while self._s < n_total:
             e = min(self._s + self.cfg.pair_batch * self._D, n_total)
             self._dispatch(e, n_total)
-        return self._drain(keep=0)
+        out = self._drain(keep=0)
+        self._release_graphs()
+        return out
 
     def close(self) -> None:
-        """Drop undrained results (cancel path). Idempotent."""
+        """Drop undrained results (cancel path) and return the graphs.
+        Idempotent."""
         self._pending.clear()
+        self._release_graphs()
+
+    def _release_graphs(self) -> None:
+        """Return the clip's graphs to the process's (:data:`GRAPHS`)."""
+        if self._set is not None:
+            self._graphs.release(self._set)
+            self._set = None
 
     @property
     def pairs_emitted(self) -> int:

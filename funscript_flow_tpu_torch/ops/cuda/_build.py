@@ -21,11 +21,15 @@ stream of the tensor's device on every call (so a CUDA graph being captured
 on that stream records the launch, and each thread launches on its own
 current stream) and switches the device only when the tensor is not on the
 current one. The only lock a launch takes guards its count, which threads
-launching at once would otherwise lose.
+launching at once would otherwise lose. A launch made while its thread
+captures a CUDA graph (:func:`captured_launches`) is counted apart: it
+runs, and is counted (:func:`add_launches`), each time the graph is
+replayed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,7 +43,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["load", "check_tensor", "check_planes", "same_device", "launch",
-           "count_launch", "SOURCES", "NVCC_FLAGS"]
+           "count_launch", "captured_launches", "add_launches", "SOURCES",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -77,6 +82,8 @@ build_info: dict = {}  # seconds, log, rebuilt — read by chip_smoke.py
 # (ops.cuda.launch_counts / reset_launches), under _count_lock
 launches: dict = {}
 _count_lock = threading.Lock()
+# the launch tally of a CUDA graph that this thread is capturing, if any
+_capturing = threading.local()
 
 
 def _nvcc() -> str:
@@ -217,6 +224,32 @@ def launch(kernel: str, fn_name: str, t: torch.Tensor, *args) -> None:
 
 def count_launch(kernel: str) -> None:
     """Add one to ``kernel``'s launch count (a read-modify-write, so under
-    a lock: clip workers launch from several threads at once)."""
+    a lock: clip workers launch from several threads at once), or to the
+    tally of the graph this thread is capturing."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[kernel] = tally.get(kernel, 0) + 1
+        return
     with _count_lock:
         launches[kernel] = launches.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While the block runs, count this thread's launches into the dict it
+    yields instead of ``launches``: the block captures a CUDA graph, whose
+    launches run only when it is replayed."""
+    tally: dict = {}
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = None
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (a captured graph's tally) to the launch counts: the
+    graph has been replayed once."""
+    with _count_lock:
+        for kernel, n in counts.items():
+            launches[kernel] = launches.get(kernel, 0) + n

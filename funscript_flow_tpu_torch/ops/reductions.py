@@ -68,7 +68,7 @@ def mean_flow_magnitude(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.hypot(u, v).mean(dim=(1, 2))
 
 
-def smooth_centers(centers: torch.Tensor, n_valid: int,
+def smooth_centers(centers: torch.Tensor, n_valid,
                    radius: int = CENTER_SMOOTH_RADIUS) -> torch.Tensor:
     """Mean of each center with up to ``radius`` neighbors per side
     (:1203-1214).
@@ -76,6 +76,8 @@ def smooth_centers(centers: torch.Tensor, n_valid: int,
     The window truncates at index 0 and at ``n_valid`` (callers that stitch
     windows pass a halo, so this truncation only happens at true video
     edges). Windowed mean via cumsum over the small pair axis.
+    ``n_valid``: an int, or a 0-d int64 tensor on the centers' device (a
+    CUDA graph's static input: read on the device, never on the host).
     """
     B = centers.shape[0]
     i = torch.arange(B, device=centers.device)
@@ -84,7 +86,11 @@ def smooth_centers(centers: torch.Tensor, n_valid: int,
                        device=centers.device)
     cs = torch.cat([zero, cs], dim=0)  # cs[k] = sum of first k
     lo = torch.clamp(i - radius, min=0)
-    hi = torch.clamp(i + radius, max=max(int(n_valid) - 1, 0))
+    if isinstance(n_valid, torch.Tensor):
+        last = torch.clamp(n_valid - 1, min=0)
+    else:
+        last = max(int(n_valid) - 1, 0)
+    hi = torch.clamp(i + radius, max=last)
     total = cs[hi + 1] - cs[lo]
     count = (hi - lo + 1).to(centers.dtype)
     return total / count[:, None]

@@ -464,6 +464,9 @@ def _process_clip(video_path, params: Params, log_func, progress_callback,
         return True
     log_func(f"Flow windows dispatched: {analyzer.windows_dispatched} "
              f"({n_local} pairs)")
+    log_func(f"Flow graphs: {analyzer.windows_replayed} of "
+             f"{analyzer.windows_dispatched} windows replayed "
+             f"({analyzer.graphs_captured} captured)")
 
     local = [np.concatenate([r[k] for r in results])[:n_local][discard:]
              if results else np.zeros(0) for k in ("dots", "cuts")]
