@@ -31,7 +31,8 @@ runs, and totalled in the clip's ``Stage timers`` line): ``ff.clip``
 around a clip, holding ``ff.clip.setup`` (open, metadata, checkpoint,
 analyzer), ``ff.decode_wait`` per frame pull, the analyzer's
 ``ff.window.upload`` / ``ff.window.program`` / ``ff.window.wait`` per
-window, ``ff.signal_chain`` (inside :func:`compute_actions`) and
+window, ``ff.signal_chain`` (inside :func:`compute_actions`, holding
+``ff.signal.route`` and ``ff.signal.device`` on long clips) and
 ``ff.clip.write``.
 """
 
@@ -93,7 +94,10 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
     (``parallel.signal_sp``); ``'device'`` forces the one-device chain,
     ``'host'`` the host chain. It runs in the span ``ff.signal_chain``
     (``utils.logging.span``), whose wall time adds to the ``signal_chain``
-    stage of ``timers``.
+    stage of ``timers``. Inside it, ``ff.signal.route`` holds ``auto``'s
+    host integration and discontinuity check (only where that check runs)
+    and ``ff.signal.device`` the one-device chain with the copies of its
+    curve and keyframe mask back to the host.
     """
     with span("ff.signal_chain", timers):
         n = len(dots)
@@ -104,9 +108,11 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
         if backend == "auto":
             backend = "host"
             if n >= AUTO_DEVICE_MIN_SAMPLES and detrend_win >= 2:
-                cum = signal_host.integrate_flow(dots, cuts)
-                if not (np.abs(np.diff(cum))
-                        > DISCONTINUITY_THRESHOLD).any():
+                with span("ff.signal.route"):
+                    cum = signal_host.integrate_flow(dots, cuts)
+                    clean = not (np.abs(np.diff(cum))
+                                 > DISCONTINUITY_THRESHOLD).any()
+                if clean:
                     backend = "sharded" if (
                         mesh is not None and len(mesh) > 1
                         and n > detrend_win) else "device"
@@ -130,12 +136,13 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
             log_func(f"Signal chain: device ({n} samples on {dev}).")
             if n == 0:
                 return [], np.zeros(0, np.float64)
-            norm, mask = signal_chain_device(
-                torch.as_tensor(np.asarray(dots, np.float32), device=dev),
-                torch.as_tensor(np.asarray(cuts, bool), device=dev),
-                n, detrend_win, norm_win)
-            norm = norm.cpu().numpy().astype(np.float64)
-            mask = mask.cpu().numpy()
+            with span("ff.signal.device"):
+                norm, mask = signal_chain_device(
+                    torch.as_tensor(np.asarray(dots, np.float32), device=dev),
+                    torch.as_tensor(np.asarray(cuts, bool), device=dev),
+                    n, detrend_win, norm_win)
+                norm = norm.cpu().numpy().astype(np.float64)
+                mask = mask.cpu().numpy()
         if not params.keyframe_reduction:
             idx = range(n)
         elif n == 1:
