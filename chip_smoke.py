@@ -23,7 +23,9 @@ when any phase fails. Phases, in order:
    sampler ``sample_patches`` on the patch grids of the DIS presets, with
    offsets of a few px and some far out of range) and K5 (its own kernel,
    three planes read where they lie: one allocation per call, checked) at
-   the DIS level shapes of the three presets. Per kernel and shape: the
+   the DIS level shapes of the three presets, and K6 (a pyramid level's
+   blur and resize) at every level of the 256 px plan and of the plans of
+   two odd frame sizes (``K6_EDGE``). Per kernel and shape: the
    kernel's time,
    the plain twin's time and, where one PyTorch call computes the same
    function, that call's time (CUDA events around one call, median of
@@ -34,14 +36,17 @@ when any phase fails. Phases, in order:
    float32 operations at 33.5e12 per second (see ``F32_OPS_PER_S``). The
    host's cost of one call of every wrapper (and of ``F.grid_sample``) at
    32 px is printed on one line. The JSON line sums each kernel over the
-   shapes its main path runs (all four levels for K1-K3, K2 on the random
-   field; the ``fast`` preset's two levels for K4 and K5); K2's
+   shapes its main path runs (all four levels for K1-K3 and K6, K2 on the
+   random field; the ``fast`` preset's two levels for K4 and K5); K2's
    smooth-field sums are printed on a line of their own;
 3b. edge shapes: K3 at odd shapes and every winsize class, K2 and K5 at
    the same shapes on a tiny and a huge field, K1 at the same shapes for
    every ``poly_n`` 1-8, and both forms of K4 at odd source sizes (and
    one too large to stage) for the patch strides of all three DIS presets
-   and one other patch size, bitwise against the twins;
+   and one other patch size, and K6 at the same shapes for a tap count in
+   each template bucket (to a smaller and a larger size) and at the plans
+   of 5 levels on a 1024 px frame and of pyr_scale 0.8, bitwise against the
+   twins;
 4. Farnebäck main path: a synthetic clip of ``FRAMES`` 256x256 frames (a
    smooth texture zoomed about the centre with scale
    1 + 0.06 sin(2 pi t / 30)) through the port's entry point
@@ -154,7 +159,9 @@ LEVELS = (256, 128, 64, 32)
 POLY = ((5, 1.2), (7, 1.5))  # (poly_n, poly_sigma) checked; the first is timed
 # launches per dispatched window of each main path; every other kernel 0
 EXPECTED_PER_WINDOW = {
-    "farneback": {"poly_exp": 8, "warp_bilinear": 12, "box_blur_solve": 12},
+    # pyramid_level: both frames of the pair at each of the 4 levels
+    "farneback": {"poly_exp": 8, "warp_bilinear": 12, "box_blur_solve": 12,
+                  "pyramid_level": 8},
     # preset fast: 17 = 16 descent steps + 1 densification sample, at 2
     # levels; one refinement warp per level
     "dis": {"sample_abs": 0, "sample_patches": 34, "warp_planes": 2},
@@ -220,6 +227,14 @@ KERNEL_META = {
         "replaces": "funscript_flow_tpu/ops/pallas/warp.py:226",
         "bytes_px": 2 * 4 + 3 * 4 + 3 * 4, "flops_px": 35,
     },
+    # per level pixel; the frames' bytes and the blur's operations are
+    # added per call (k6_cost). Replaces no Pallas kernel: XLA builds the
+    # JAX package's pyramid
+    "pyramid_level": {
+        "source": "funscript_flow_tpu_torch/csrc/pyramid.cu",
+        "replaces": None,
+        "bytes_px": 4, "flops_px": 0,
+    },
 }
 # Odd shapes (B, H, W) for the edge phase: H and W that are not multiples of
 # any kernel's tile, a single pixel, and a width under the blur's halo
@@ -235,6 +250,14 @@ EDGE_K4 = ((40, 48), (45, 77), (200, 232))
 # (patch size, stride): ultrafast and fast (8, 4), medium (8, 3), and a
 # patch size that takes the kernel's run-time-size instance
 EDGE_PATCHES = ((8, 4), (8, 3), (5, 2))
+# K6's odd frame sizes (H, W) at B=252: the plans of a 100x75 and a 47x33
+# frame (two levels and one)
+K6_EDGE = ((75, 100), (33, 47))
+# K6 at the edge shapes: tap counts of every template bucket (1-79, odd),
+# each to a smaller and a larger size; and whole plans of other
+# configurations: (frame side, levels, pyr_scale)
+EDGE_K6_TAPS = (1, 3, 5, 7, 11, 19, 21, 39, 41, 79)
+EDGE_K6_PLANS = ((1024, 5, 0.5), (256, 5, 0.8))
 
 
 class Failure(Exception):
@@ -307,10 +330,10 @@ def host_us(torch, fn, n: int = 200) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def bound_ms(name: str, n_px: int, extra_bytes: int = 0):
+def bound_ms(name: str, n_px: int, extra_bytes: int = 0, extra_ops: int = 0):
     m = KERNEL_META[name]
     t_bytes = (n_px * m["bytes_px"] + extra_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = n_px * m["flops_px"] / F32_OPS_PER_S * 1e3
+    t_ops = (n_px * m["flops_px"] + extra_ops) / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -319,11 +342,11 @@ def max_err(got, want) -> float:
 
 
 def _row(out, name, shape, err, t_k, t_p, t_l, dev, n_px, extra_bytes=0,
-         summed=True):
+         summed=True, extra_ops=0):
     """Print one kernel/shape line; add it to ``out[name]`` if ``summed``.
     ``dev``: (kernel, library) :func:`device_ms`, the library's None where
     there is no library call."""
-    b_ms, _ = bound_ms(name, n_px, extra_bytes)
+    b_ms, _ = bound_ms(name, n_px, extra_bytes, extra_ops)
     lib = "null" if t_l is None else f"{t_l:.4f}"
     lib_dev = "null" if dev[1] is None else f"{dev[1]:.4f}"
     print(f"kernel {name} B={B_MAIN} {shape}: max_abs_err={err:.3g} "
@@ -332,7 +355,8 @@ def _row(out, name, shape, err, t_k, t_p, t_l, dev, n_px, extra_bytes=0,
           f"library_device_ms={lib_dev}")
     o = out.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                               "bound_ms": 0.0, "library_ms": 0.0, "px": 0,
-                              "extra_bytes": 0, "device": None})
+                              "extra_bytes": 0, "extra_ops": 0,
+                              "device": None})
     o["max_abs_err"] = max(o["max_abs_err"], err)
     if summed:
         o["device"] = dev if o["device"] is None else tuple(
@@ -343,6 +367,7 @@ def _row(out, name, shape, err, t_k, t_p, t_l, dev, n_px, extra_bytes=0,
         o["library_ms"] = None if t_l is None else o["library_ms"] + t_l
         o["px"] += n_px
         o["extra_bytes"] += extra_bytes
+        o["extra_ops"] += extra_ops
 
 
 def _add_preset(per_preset, name, presets, t_k, t_p, t_l, b, dev):
@@ -688,9 +713,60 @@ def k5_section(torch, dev, gen, out, host, per_preset) -> None:
           "every size: no stack or copy before the launch")
 
 
+def k6_cost(N: int, H: int, W: int, lh: int, lw: int, k: int) -> tuple:
+    """(extra bytes, extra f32 operations) of one K6 launch beside its 4 B
+    per level pixel: the frames read once, and the operations at the points
+    the kernel computes (perfbench/kernels/pyramid_level.json's count): two
+    vertical sums per level row at every column of a tile's span, four
+    horizontal sums and the two lerps per level pixel."""
+    from funscript_flow_tpu_torch.ops.cuda import pyramid
+
+    _, tw, sw = pyramid.tiles(H, W, lh, lw, k)
+    ops = (N * lh * -(-lw // tw) * sw * 2 * (2 * k - 1)
+           + N * lh * lw * (4 * (2 * k - 1) + 10))
+    return 4 * N * H * W, ops
+
+
+def k6_section(torch, dev, gen, out, host, per_preset) -> None:
+    """K6 at every level of the 256 px plan (the JSON line's sums) and of
+    the plans of two odd frame sizes (``K6_EDGE``), B=252, bitwise against
+    the blur and resize it fuses."""
+    from funscript_flow_tpu_torch.ops import image
+    from funscript_flow_tpu_torch.ops.cuda import pyramid
+    from funscript_flow_tpu_torch.ops.farneback import FarnebackConfig
+
+    for H, W in ((LEVELS[0], LEVELS[0]),) + K6_EDGE:
+        img = torch.rand((B_MAIN, H, W), generator=gen, device=dev) * 255
+        for _, lh, lw, sigma, k in FarnebackConfig().pyramid_plan(H, W):
+            got = pyramid.pyramid_level(img, k, sigma, lh, lw)
+            want = image.resize_bilinear(image.gaussian_blur(img, k, sigma),
+                                         lh, lw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(torch.equal(got, want), f"pyramid_level {H}x{W} -> "
+                                          f"{lh}x{lw} ksize {k}: max abs "
+                                          f"err {err}")
+            del got, want
+
+            def k6():
+                return pyramid.pyramid_level(img, k, sigma, lh, lw)
+            t = (time_ms(torch, k6), time_ms(torch, lambda: (
+                image.resize_bilinear(image.gaussian_blur(img, k, sigma),
+                                      lh, lw))), None)
+            extra_bytes, extra_ops = k6_cost(B_MAIN, H, W, lh, lw, k)
+            _row(out, "pyramid_level", f"{H}x{W}->{lh}x{lw} ksize={k}", err,
+                 *t, (device_ms(torch, k6), None), B_MAIN * lh * lw,
+                 extra_bytes, summed=H == W == LEVELS[0], extra_ops=extra_ops)
+            if H == W == LEVELS[0] and lh == LEVELS[-1]:
+                host["pyramid_level"] = host_us(torch, k6)
+        del img
+        torch.cuda.empty_cache()
+
+
 SECTIONS = {"poly_exp": k1_section, "warp_bilinear": k2_section,
             "box_blur_solve": k3_section, "sample_abs": k4_dense_section,
-            "sample_patches": k4_patch_section, "warp_planes": k5_section}
+            "sample_patches": k4_patch_section, "warp_planes": k5_section,
+            "pyramid_level": k6_section}
 
 
 def kernel_phase(torch, dev) -> dict:
@@ -704,7 +780,8 @@ def kernel_phase(torch, dev) -> dict:
               "ms={:.4f} plain_ms={:.4f} library_ms={:.4f} bound_ms={:.4f} "
               "device_ms={:.4f} library_device_ms={:.4f}".format(*sums))
     for name, o in out.items():
-        o["bound_by"] = bound_ms(name, o["px"], o["extra_bytes"])[1]
+        o["bound_by"] = bound_ms(name, o["px"], o["extra_bytes"],
+                                 o["extra_ops"])[1]
         t_d, t_ld = o["device"]
         print(f"kernel {name}, summed as in the JSON line: ms={o['ms']:.4f} "
               f"device_ms={t_d:.4f} library_device_ms="
@@ -718,16 +795,29 @@ def kernel_phase(torch, dev) -> dict:
 def edge_phase(torch, dev) -> None:
     """K3 at every ``EDGE_SHAPES`` shape and ``EDGE_WINSIZES`` window, K2
     (P=5) and K5 (P=3) at every shape and ``EDGE_AMPLITUDES`` field, K1 at
-    every shape for ``poly_n`` 1-8, and both forms of K4 at the
-    ``EDGE_K4`` sources for every ``EDGE_PATCHES`` patch size and stride,
-    each held bitwise against its plain twin."""
+    every shape for ``poly_n`` 1-8, K6 at every shape for the
+    ``EDGE_K6_TAPS`` tap counts and at the ``EDGE_K6_PLANS`` plans, and
+    both forms of K4 at the ``EDGE_K4`` sources for every ``EDGE_PATCHES``
+    patch size and stride, each held bitwise against its plain twin."""
     from funscript_flow_tpu_torch.models import dis
-    from funscript_flow_tpu_torch.ops import farneback as fb
-    from funscript_flow_tpu_torch.ops.cuda import flow_step, polyexp, warp
+    from funscript_flow_tpu_torch.ops import farneback as fb, image
+    from funscript_flow_tpu_torch.ops.cuda import (flow_step, polyexp,
+                                                   pyramid, warp)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     counts = dict.fromkeys(("box_blur_solve", "warp_bilinear", "warp_planes",
-                            "poly_exp", "sample_abs", "sample_patches"), 0)
+                            "poly_exp", "sample_abs", "sample_patches",
+                            "pyramid_level"), 0)
+
+    def k6_case(img, k, sigma, lh, lw):
+        got = pyramid.pyramid_level(img, k, sigma, lh, lw)
+        want = image.resize_bilinear(image.gaussian_blur(img, k, sigma), lh,
+                                     lw)
+        check(torch.equal(got, want),
+              f"pyramid_level {tuple(img.shape)} -> {lh}x{lw} ksize {k}: "
+              f"max abs err {max_err(got, want)}")
+        counts["pyramid_level"] += 1
+
     for B, H, W in EDGE_SHAPES:
         M = tuple(torch.randn((B, H, W), generator=gen, device=dev) * 2
                   for _ in range(5))
@@ -761,6 +851,17 @@ def edge_phase(torch, dev) -> None:
                   f"poly_exp B={B} {H}x{W} poly_n {n}: max abs err "
                   f"{max_err(got, want)}")
             counts["poly_exp"] += 1
+        # the twin's reflect pad needs the radius under each side
+        for k in EDGE_K6_TAPS:
+            if k == 1 or k // 2 < min(H, W):
+                for lh, lw in ((H // 2 + 1, W // 3 + 1), (H + 3, W + 5)):
+                    k6_case(img, k, 0.3 * k, lh, lw)
+    for side, levels, scale in EDGE_K6_PLANS:
+        img = torch.rand((2, side, side), generator=gen, device=dev) * 255
+        plan = fb.FarnebackConfig(pyr_scale=scale,
+                                  levels=levels).pyramid_plan(side, side)
+        for _, lh, lw, sigma, k in plan:
+            k6_case(img, k, sigma, lh, lw)
     for h, w in EDGE_K4:
         B = 3
         img = torch.rand((B, h, w), generator=gen, device=dev) * 255
@@ -783,7 +884,8 @@ def edge_phase(torch, dev) -> None:
     torch.cuda.synchronize()
     print(f"edge shapes: {sum(counts.values())} cases ({counts}) at B,H,W "
           f"{EDGE_SHAPES} (winsize {EDGE_WINSIZES}, +-{EDGE_AMPLITUDES} px "
-          f"fields, poly_n 1-8) and K4 sources {EDGE_K4} (patch, stride "
+          f"fields, poly_n 1-8, K6 ksize {EDGE_K6_TAPS}), K6 plans "
+          f"{EDGE_K6_PLANS} and K4 sources {EDGE_K4} (patch, stride "
           f"{EDGE_PATCHES}): all bitwise equal to their twins")
 
 
@@ -1043,10 +1145,11 @@ def device_rows(prof) -> list:
 
 
 # the hand kernels' symbols, as the profiler names them: K1, K2, K3, K4's
-# patch form, K4's dense form, K5
+# patch form, K4's dense form, K5, K6
 HAND_KERNELS = ("poly_exp_kernel", "warp_bilinear_kernel",
                 "box_blur_solve_kernel", "sample_kernel<true",
-                "sample_kernel<false", "warp_planes_kernel")
+                "sample_kernel<false", "warp_planes_kernel",
+                "pyramid_level_kernel")
 
 
 # each launch count's kernel as the profiler names it
@@ -1055,7 +1158,8 @@ TRACE_NAMES = {"poly_exp": "poly_exp_kernel",
                "box_blur_solve": "box_blur_solve_kernel",
                "sample_patches": "sample_kernel<true",
                "sample_abs": "sample_kernel<false",
-               "warp_planes": "warp_planes_kernel"}
+               "warp_planes": "warp_planes_kernel",
+               "pyramid_level": "pyramid_level_kernel"}
 
 
 def graph_trace_phase(torch, dev, card, frames, algorithm: str) -> None:

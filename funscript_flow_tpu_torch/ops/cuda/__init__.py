@@ -15,9 +15,10 @@ __all__ = ["KERNELS", "launch_counts", "reset_launches"]
 
 # the wrapper entry points: K1 polyexp.poly_exp, K2 warp.warp_bilinear,
 # K3 flow_step.box_blur_solve, K4 in two forms (warp.sample_abs, dense;
-# warp.sample_patches, the DIS patch sampler), K5 warp.warp_planes
+# warp.sample_patches, the DIS patch sampler), K5 warp.warp_planes, K6
+# pyramid.pyramid_level
 KERNELS = ("poly_exp", "warp_bilinear", "box_blur_solve", "sample_abs",
-           "sample_patches", "warp_planes")
+           "sample_patches", "warp_planes", "pyramid_level")
 
 
 def launch_counts() -> dict:

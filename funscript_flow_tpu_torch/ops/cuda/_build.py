@@ -50,7 +50,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "funscript_flow_tpu_torch"
 LIB_NAME = "libffkernels.so"
-SOURCES = ("polyexp.cu", "warp.cu", "warp_planes.cu", "flow_step.cu")
+SOURCES = ("polyexp.cu", "warp.cu", "warp_planes.cu", "flow_step.cu",
+           "pyramid.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
@@ -72,6 +73,10 @@ _SIGNATURES = {
     "ff_sample_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # m0..m4, u, v, B, H, W, win, inv_area, stream
     "ff_box_blur_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # src [N,H,W], out [N,lh,lw], idx, wts (device tables), N, H, W, lh,
+    # lw, k, taps[k] (host), th, tw, sw, stream
+    "ff_pyramid_level": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                         _I, _P),
 }
 
 _lock = threading.Lock()

@@ -12,10 +12,11 @@ planes, as the JAX package does; inside the schedule the five polynomial
 planes of one image travel stacked as ``[B, 5, H, W]`` (the layout the
 kernels read and write).
 
-Three steps of each pyramid level are hand-written CUDA kernels
-(``ops/cuda``, sources in ``csrc/``): the polynomial expansion, the bilinear
-warp of R1, and the box blur + 2x2 solve. Their plain PyTorch twins live
-here (``poly_exp``, ``warp_bilinear``, ``solve_flow``): the tests hold them
+Four steps of each pyramid level are hand-written CUDA kernels
+(``ops/cuda``, sources in ``csrc/``): the level's blur and resize of each
+frame, the polynomial expansion, the bilinear warp of R1, and the box blur
++ 2x2 solve. Their plain PyTorch twins (``ops/image`` for the first, then
+``poly_exp``, ``warp_bilinear``, ``solve_flow`` here): the tests hold them
 against the JAX package, the kernels are held against them on the card, and
 a kernel wrapper handed a CPU tensor computes its twin.
 ``FarnebackConfig(kernels="plain")`` runs the twins on any device — the
@@ -59,7 +60,7 @@ _BORDER_SCALE = (0.14, 0.14, 0.4472, 0.4472, 0.4472)
 class FarnebackConfig:
     """Flow parameters.
 
-    ``kernels``: ``"auto"`` routes the three hot steps through the CUDA
+    ``kernels``: ``"auto"`` routes the four hot steps through the CUDA
     kernel wrappers (which launch their kernel on a CUDA tensor and compute
     the plain twin on a CPU tensor); ``"plain"`` runs the plain twins on
     any device.
@@ -291,7 +292,10 @@ def farneback_flow_planes(f0: torch.Tensor, f1: torch.Tensor,
     plan = cfg.pyramid_plan(H, W)
 
     if cfg.kernels == "auto":
-        from .cuda import flow_step, polyexp, warp
+        from .cuda import flow_step, polyexp, pyramid, warp
+
+        def level(f, ksize, sigma, lh, lw):
+            return pyramid.pyramid_level(f.contiguous(), ksize, sigma, lh, lw)
 
         def expand(img):
             return polyexp.poly_exp(img, cfg.poly_n, cfg.poly_sigma)
@@ -301,6 +305,9 @@ def farneback_flow_planes(f0: torch.Tensor, f1: torch.Tensor,
         def solve(M):
             return flow_step.box_blur_solve(M, cfg.winsize)
     else:
+        def level(f, ksize, sigma, lh, lw):
+            return resize_bilinear(gaussian_blur(f, ksize, sigma), lh, lw)
+
         def expand(img):
             return torch.stack(poly_exp(img, cfg.poly_n, cfg.poly_sigma), 1)
 
@@ -311,8 +318,8 @@ def farneback_flow_planes(f0: torch.Tensor, f1: torch.Tensor,
 
     u = v = None
     for (s, lh, lw, sigma, ksize) in plan:
-        i0 = resize_bilinear(gaussian_blur(f0, ksize, sigma), lh, lw)
-        i1 = resize_bilinear(gaussian_blur(f1, ksize, sigma), lh, lw)
+        i0 = level(f0, ksize, sigma, lh, lw)
+        i1 = level(f1, ksize, sigma, lh, lw)
         R0 = expand(i0).unbind(1)
         R1 = expand(i1)  # stacked [B, 5, lh, lw]: the warp's operand
 

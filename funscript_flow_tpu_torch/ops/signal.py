@@ -1,4 +1,4 @@
-"""Device-side signal chain (PyTorch, float32) for long clips.
+"""Device-side signal chain (PyTorch) for long clips.
 
 The port of ``funscript_flow_tpu.ops.signal``: the reference's per-video
 1-D signal chain (FunscriptFlow.pyw:1266-1397) as tensor ops on the
@@ -9,8 +9,13 @@ signal has 65,536 samples or more and no cumulative-flow discontinuity
 
 Every function takes the signal and ``n``, its valid length (a Python
 int); samples past ``n`` are padding that the masks exclude, as in the
-JAX module. The runner passes unpadded signals (the JAX package padded to
-power-of-two lengths only to bound XLA compiles).
+JAX module. Each computes in its input's float type: float32 repeats the
+JAX module's arithmetic; float64, which the runner passes, keeps the
+integrated flow of a long clip (tens of thousands at its end) exact
+enough that the 0-100 curve stays within rounding of the float64 host
+chain, where float32 strayed by up to 8.6 on such a clip. The runner
+passes unpadded signals (the JAX package padded to power-of-two lengths
+only to bound XLA compiles).
 
 * Integration is a segmented prefix sum over affine maps
   ``c -> a*c + b``, composed by the same odd-even recursion that
@@ -49,6 +54,13 @@ BINOMIAL_KERNEL = (1 / 16, 1 / 4, 3 / 8, 1 / 4, 1 / 16)
 DISCONTINUITY_THRESHOLD = 1000.0  # reference :1288
 
 
+def _float(t: torch.Tensor) -> torch.dtype:
+    """The type the chain computes ``t`` in: its own when float32 or
+    float64, else float32."""
+    return t.dtype if t.dtype in (torch.float32, torch.float64) \
+        else torch.float32
+
+
 def _affine_scan(a: torch.Tensor, b: torch.Tensor):
     """Inclusive scan of the affine maps (a[i], b[i]) under
     ``(a1, b1) . (a2, b2) = (a1*a2, b1*a2 + b2)``, by the odd-even
@@ -81,9 +93,9 @@ def integrate_flow(dots: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
     :1266-1284): ``cum[i] = cuts[i] ? 0 : cum[i-1] + (dots[i-1]+dots[i])/2``,
     then ``out[i] = (cum[i]+cum[i-1])/2``. Padding entries should be
     0/False; they give values the downstream masks discard."""
-    dots = dots.to(torch.float32)
+    dots = dots.to(_float(dots))
     g = torch.cat([dots.new_zeros(1), (dots[:-1] + dots[1:]) * 0.5])
-    keep = torch.logical_not(cuts).to(torch.float32)
+    keep = torch.logical_not(cuts).to(dots.dtype)
     # element i applies c -> a[i]*c + b[i]; index 0 pins cum[0] = 0
     a = keep.clone()
     a[0] = 0.0
@@ -95,12 +107,12 @@ def integrate_flow(dots: torch.Tensor, cuts: torch.Tensor) -> torch.Tensor:
     return shifted
 
 
-def _hann(t: torch.Tensor, length) -> torch.Tensor:
+def _hann(t: torch.Tensor, length, dtype=torch.float32) -> torch.Tensor:
     """np.hanning of length ``length`` (int or tensor) at integer offsets
-    ``t``: length 1 -> 1.0; entries at t >= length are 0."""
+    ``t``, in ``dtype``: length 1 -> 1.0; entries at t >= length are 0."""
     length = torch.as_tensor(length, device=t.device)
-    denom = torch.clamp(length - 1, min=1).to(torch.float32)
-    w = 0.5 - 0.5 * torch.cos(2.0 * math.pi * t.to(torch.float32) / denom)
+    denom = torch.clamp(length - 1, min=1).to(dtype)
+    w = 0.5 - 0.5 * torch.cos(2.0 * math.pi * t.to(dtype) / denom)
     w = torch.where(length == 1, 1.0, w)
     return torch.where(t < length, w, 0.0)
 
@@ -136,7 +148,7 @@ def detrend_single_segment(x: torch.Tensor, n: int,
     ``n``."""
     P = x.shape[0]
     dev = x.device
-    x = x.to(torch.float32)
+    x = x.to(_float(x))
     i = torch.arange(P, device=dev)
     in_range = (i < n).to(x.dtype)
 
@@ -146,7 +158,7 @@ def detrend_single_segment(x: torch.Tensor, n: int,
 
     if n <= detrend_win:
         res = _masked_linear_residual(x[None, :], i[None, :], n)[0]
-        w = _hann(i, n)
+        w = _hann(i, n, x.dtype)
         return res * w / torch.clamp(w, min=1e-6) * in_range
 
     # grid case: static window slots at start = s * hop
@@ -162,7 +174,7 @@ def detrend_single_segment(x: torch.Tensor, n: int,
     gathered = x[torch.clamp(idx, 0, P - 1)]
     tb = t.expand(idx.shape)
     res = _masked_linear_residual(gathered, tb, lengths)
-    w = _hann(tb, lengths)
+    w = _hann(tb, lengths, x.dtype)
     mask = (slot_valid[:, None] & (tb < lengths)).to(x.dtype)
     contrib = (res * w * mask).reshape(-1)
     wcontrib = (w * mask).reshape(-1)

@@ -87,17 +87,18 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
     Window sizes derive from the effective fps (reference :1287, :1335).
     ``signal_backend='auto'`` runs the exact float64 host chain, except for
     signals of ``AUTO_DEVICE_MIN_SAMPLES`` or more with ``detrend_win >= 2``
-    and no cumulative-flow discontinuity, which run on the float32 device
-    chain (``ops.signal``) on ``device`` (``None`` means ``cuda:0``) — or,
-    when ``mesh`` lists more than one device and the signal is longer than
-    ``detrend_win``, on the time-axis-sharded chain over those devices
-    (``parallel.signal_sp``); ``'device'`` forces the one-device chain,
-    ``'host'`` the host chain. It runs in the span ``ff.signal_chain``
-    (``utils.logging.span``), whose wall time adds to the ``signal_chain``
-    stage of ``timers``. Inside it, ``ff.signal.route`` holds ``auto``'s
-    host integration and discontinuity check (only where that check runs)
-    and ``ff.signal.device`` the one-device chain with the copies of its
-    curve and keyframe mask back to the host.
+    and no cumulative-flow discontinuity, which run on the device chain
+    (``ops.signal``, in float64) on ``device`` (``None`` means ``cuda:0``)
+    — or, when ``mesh`` lists more than one device and the signal is longer
+    than ``detrend_win``, on the float32 time-axis-sharded chain over
+    those devices (``parallel.signal_sp``); ``'device'`` forces the
+    one-device chain, ``'host'`` the host chain. It runs in the span
+    ``ff.signal_chain`` (``utils.logging.span``), whose wall time adds to
+    the ``signal_chain`` stage of ``timers``. Inside it,
+    ``ff.signal.route`` holds ``auto``'s host integration and
+    discontinuity check (only where that check runs) and
+    ``ff.signal.device`` the one-device chain with the copies of its curve
+    and keyframe mask back to the host.
     """
     with span("ff.signal_chain", timers):
         n = len(dots)
@@ -138,7 +139,7 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
                 return [], np.zeros(0, np.float64)
             with span("ff.signal.device"):
                 norm, mask = signal_chain_device(
-                    torch.as_tensor(np.asarray(dots, np.float32), device=dev),
+                    torch.as_tensor(np.asarray(dots, np.float64), device=dev),
                     torch.as_tensor(np.asarray(cuts, bool), device=dev),
                     n, detrend_win, norm_win)
                 norm = norm.cpu().numpy().astype(np.float64)

@@ -21,7 +21,7 @@ from funscript_flow_tpu.ops.pallas.polyexp import poly_exp_pallas
 from funscript_flow_tpu.ops.pallas.warp import (pack_warp_operand,
                                                 warp_bilinear_pallas)
 from funscript_flow_tpu_torch.ops import farneback as tfb
-from funscript_flow_tpu_torch.ops.cuda import flow_step, polyexp, warp
+from funscript_flow_tpu_torch.ops.cuda import flow_step, polyexp, pyramid, warp
 
 # the tests run in several worker processes at once: one torch thread
 # each keeps them from oversubscribing the cores
@@ -315,9 +315,11 @@ def test_cpu_route_does_not_count_launches():
     warp.sample_abs(x, x * 0, x * 0)
     warp.sample_patches(x, x[:, :7, :7] * 0, x[:, :7, :7] * 0, 8, 4)
     warp.warp_planes([x] * 3, x * 0, x * 0)
+    pyramid.pyramid_level(x, 3, 0.0, 16, 16)
     assert kcuda.launch_counts() == {"poly_exp": 0, "warp_bilinear": 0,
                                      "box_blur_solve": 0, "sample_abs": 0,
-                                     "sample_patches": 0, "warp_planes": 0}
+                                     "sample_patches": 0, "warp_planes": 0,
+                                     "pyramid_level": 0}
 
 
 def test_launch_path_rejects_cpu_and_mixed_devices():

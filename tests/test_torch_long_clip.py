@@ -89,10 +89,38 @@ def test_long_clip_with_a_step_records_the_route_only():
 
 
 def test_device_chain_matches_the_plain_reference(long_clean, record_property):
-    """The float32 chain on CPU tensors against the benchmark's float64
+    """The device chain on CPU tensors against the benchmark's float64
     reference chain, both read as piecewise-linear pos curves
     (``bench.correct.pos_gap``), as a long cell's ``correct`` reads them."""
     dots, cuts = long_clean
+    acts, logs, _ = _traced(dots, cuts)
+    assert any(m.startswith("Signal chain: device") for m in logs), logs
+    p = Params()
+    want = ref_signal.actions(dots, cuts, 1, FPS, FPS, p.detrend_window,
+                              p.norm_window, p.keyframe_reduction)
+    gap = correct.pos_gap(acts, want)
+    record_property("pos_gap", gap)
+    assert gap <= 0.5
+
+
+def _drifting(n, drift, amp, seed=5):
+    """A zoom-like oscillation riding on a steady drift, so that the
+    integrated flow climbs to tens of thousands (an hour cell's clip read
+    32,007 at its end); no cut."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    period = 30 * rng.uniform(0.6, 2.0)
+    dots = drift + amp * np.sin(2 * np.pi * t / period) \
+        + rng.normal(0, 0.05, n)
+    return dots.astype(np.float32), np.zeros(n, bool)
+
+
+@pytest.mark.parametrize("drift,amp", [(0.45, 2.0), (0.3, 0.3)])
+def test_device_chain_holds_a_drifting_clip(drift, amp, record_property):
+    """As above where the integrated flow drifts to about 21,000-31,500:
+    the device chain runs in float64, where a float32 chain strays from
+    the reference by 5.6-7.7 on these signals."""
+    dots, cuts = _drifting(LONG, drift, amp)
     acts, logs, _ = _traced(dots, cuts)
     assert any(m.startswith("Signal chain: device") for m in logs), logs
     p = Params()
