@@ -114,12 +114,10 @@ when any phase fails. Phases, in order:
    chrome trace, naming ``poly_exp_kernel``; ``utils.devprof.
    device_profile`` of one full Farnebäck window beside the device time
    of one traced window summed as phase 12 sums it;
-12. mesh and SP: the 1800-frame clip through ``StreamingFlowAnalyzer``
-   with a mesh of two devices (``cuda:0`` and ``cuda:1`` when the machine
-   has two cards, else ``cuda:0`` twice), bitwise equal to no mesh; the
-   one-hour signal through ``signal_chain_sharded`` over ``cuda:0`` four
-   times (and through ``compute_actions`` with that mesh), within 1e-3 of
-   the two-device run and 0.5 of the host chain;
+12. mesh: the 1800-frame clip through ``StreamingFlowAnalyzer`` with a
+   mesh of two devices (``cuda:0`` and ``cuda:1`` when the machine has
+   two cards, else ``cuda:0`` twice), bitwise equal to no mesh and in as
+   many windows, then again: the second run replays every window;
 13. with ``--profile DIR`` only: one full window of each flow algorithm
    timed and traced (torch.profiler), device time summed by kernel name,
    traces in DIR; the folder of each flow algorithm with 1 and with 3
@@ -190,7 +188,6 @@ FOLDER_CLIPS = ((900, SEED + 1), (1200, SEED + 2), (FRAMES, SEED))
 FOLDER_WORKERS = (1, 3)
 CKPT_EVERY_PAIRS = 240
 PROFILE_FRAMES = 300
-SP_SHARDS = 4
 FILE_SIZE = (720, 1280)   # (h, w) of the file phase's clip
 
 KERNEL_META = {
@@ -1093,8 +1090,7 @@ def signal_chain_phase(torch, dev):
     """A one-hour signal through ``compute_actions`` with
     ``signal_backend="auto"`` on the card: it must route to the device
     chain and stay within 0.5 of the host chain's 0-100 curve
-    (tests/test_signal_jax.py:109). Prints both chains' times; returns the
-    signal (dots, cuts) and the host chain's curve."""
+    (tests/test_signal_jax.py:109). Prints both chains' times."""
     from funscript_flow_tpu_torch.runner import compute_actions
     from funscript_flow_tpu_torch.utils.params import Params
 
@@ -1126,7 +1122,6 @@ def signal_chain_phase(torch, dev):
     check(err <= 0.5, f"device signal chain off the host chain by {err}")
     check(len(dev_acts) > 1000 and all(0 <= a["pos"] <= 100 for a in dev_acts),
           "device signal chain: implausible actions")
-    return dots, cuts, norm
 
 
 def device_rows(prof) -> list:
@@ -1486,8 +1481,9 @@ def profile_phase(torch, dev, card, video, frames) -> None:
 
 
 def mesh_phase(torch, dev, card, frames) -> None:
-    """The clip through ``StreamingFlowAnalyzer`` with no mesh and with a
-    mesh of two devices: every output bitwise equal."""
+    """The clip through ``StreamingFlowAnalyzer`` with no mesh and twice
+    with a mesh of two devices: every output bitwise equal, as many
+    windows, and on the second mesh run every window a graph replay."""
     from funscript_flow_tpu_torch.models.pipeline import (
         PipelineConfig, StreamingFlowAnalyzer)
 
@@ -1496,8 +1492,9 @@ def mesh_phase(torch, dev, card, frames) -> None:
             "cuda:0 and cuda:1"
     else:
         mesh, which = [dev, dev], "cuda:0 twice (one card)"
-    out, times = {}, {}
-    for label, kw in (("none", {"device": dev}), ("mesh", {"mesh": mesh})):
+    out, runs = {}, {}
+    for label, kw in (("none", {"device": dev}), ("mesh", {"mesh": mesh}),
+                      ("again", {"mesh": mesh})):
         an = StreamingFlowAnalyzer(PipelineConfig(),
                                    n_pairs_total=len(frames) - 1, **kw)
         torch.cuda.synchronize()
@@ -1506,52 +1503,23 @@ def mesh_phase(torch, dev, card, frames) -> None:
         for s in range(0, len(frames), 240):
             res.extend(an.push(frames[s : s + 240]))
         res.extend(an.flush())
-        times[label] = (time.perf_counter() - t0, an.windows_dispatched)
+        runs[label] = (time.perf_counter() - t0, an.windows_dispatched,
+                       an.windows_replayed)
         out[label] = {k: np.concatenate([r[k] for r in res]) for k in an.KEYS}
-    diff = [k for k in out["none"]
-            if not np.array_equal(out["none"][k], out["mesh"][k])]
-    print(f"mesh: {len(frames) - 1} pairs, no mesh {times['none'][0]:.3f} s "
-          f"in {times['none'][1]} windows, mesh of {which} "
-          f"{times['mesh'][0]:.3f} s in {times['mesh'][1]} windows; "
-          f"outputs differing: {diff or 'none'} ({card})")
+    diff = [f"{label}.{k}" for label in ("mesh", "again") for k in out["none"]
+            if not np.array_equal(out["none"][k], out[label][k])]
+    print(f"mesh: {len(frames) - 1} pairs, no mesh {runs['none'][0]:.3f} s "
+          f"in {runs['none'][1]} windows, mesh of {which} "
+          f"{runs['mesh'][0]:.3f} s in {runs['mesh'][1]} windows, again "
+          f"{runs['again'][0]:.3f} s, {runs['again'][2]} of "
+          f"{runs['again'][1]} windows replayed; outputs differing: "
+          f"{diff or 'none'} ({card})")
     check(not diff, f"mesh: outputs {diff} not bitwise equal to no mesh")
-
-
-def sp_phase(torch, dev, card, signal) -> None:
-    """The one-hour signal through ``signal_chain_sharded`` over
-    ``SP_SHARDS`` shards on ``dev`` (and through ``compute_actions`` with
-    that mesh): within 1e-3 of the two-shard run and 0.5 of the host chain
-    (tests/test_parallel.py:51,67-68)."""
-    from funscript_flow_tpu_torch.parallel.signal_sp import \
-        signal_chain_sharded
-    from funscript_flow_tpu_torch.runner import compute_actions
-    from funscript_flow_tpu_torch.utils.params import Params
-
-    dots, cuts, host_norm = signal
-    win, nwin = int(2.0 * 30), int(3.0 * 30)  # Params' 2 s and 3 s at 30 fps
-    mesh = [dev] * SP_SHARDS
-    signal_chain_sharded(dots, cuts, mesh, win, nwin)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    norm, mask = signal_chain_sharded(dots, cuts, mesh, win, nwin)
-    wall = time.perf_counter() - t0
-    two, _ = signal_chain_sharded(dots, cuts, [dev] * 2, win, nwin)
-    logs = []
-    acts, routed = compute_actions(dots, cuts, np.arange(len(dots)), 30.0,
-                                   30.0, Params(), logs.append, device=dev,
-                                   mesh=mesh)
-    check(any("time-axis sharded" in m for m in logs),
-          f"sp: compute_actions did not take the sharded chain: {logs}")
-    e2, eh = (float(np.abs(norm - two).max()),
-              float(np.abs(norm - host_norm).max()))
-    er = float(np.abs(routed - norm).max())
-    print(f"sp: {len(dots)} samples over {SP_SHARDS} shards on {dev}: "
-          f"{wall:.4f} s, {int(mask.sum())} keyframes, {len(acts)} actions "
-          f"through compute_actions; max |norm - 2-shard| {e2:.3g} (tol "
-          f"1e-3), max |norm - host| {eh:.3g} (tol 0.5), compute_actions "
-          f"{er:.3g} ({card})")
-    check(e2 <= 1e-3 and eh <= 0.5 and er <= 1e-6,
-          f"sp: off its references: {e2}, {eh}, {er}")
+    check(runs["mesh"][1] == runs["again"][1] == runs["none"][1],
+          f"mesh: windows dispatched {runs} differ from no mesh")
+    check(runs["again"][2] == runs["again"][1],
+          f"mesh: the second run replayed {runs['again'][2]} of "
+          f"{runs['again'][1]} windows")
 
 
 LIB_DIRS = ("/usr/lib/x86_64-linux-gnu", "/usr/lib64", "/usr/lib",
@@ -1995,7 +1963,7 @@ def main(argv=None) -> int:
         dis_presets_phase(torch, dev, card, frames)
         for algorithm in ("farneback", "dis"):
             graph_trace_phase(torch, dev, card, frames, algorithm)
-        signal = signal_chain_phase(torch, dev)
+        signal_chain_phase(torch, dev)
         if probe["pump"]["built"]:
             file_phase(torch, dev, card)
             with tempfile.TemporaryDirectory() as folder:
@@ -2033,7 +2001,6 @@ def main(argv=None) -> int:
                           os.path.join(folder, "profile_clip.mp4"), frames)
         runner._open_video = open_video
         mesh_phase(torch, dev, card, frames)
-        sp_phase(torch, dev, card, signal)
         if args.profile:
             for algorithm in ("farneback", "dis"):
                 profile_window(torch, dev, frames, args.profile, algorithm)

@@ -3,7 +3,8 @@
 Video in, ``.funscript`` out, on an NVIDIA GPU: host decode feeds uint8
 grayscale frame windows to the card, pyramidal Farnebäck flow (or DIS flow,
 ``backend="DIS"``) and the per-pair reductions run there (the flows' hot
-steps are five hand-written CUDA kernels, ``csrc/``), and the signal chain
+steps are six hand-written CUDA kernels, ``csrc/``, the sixth, K6, a
+Farnebäck pyramid level's blur and resize), and the signal chain
 emits the funscript: the NumPy host chain, or for clips of 65,536 samples
 or more the device chain. Same module layout as the JAX package, so each
 counterpart is easy to find:

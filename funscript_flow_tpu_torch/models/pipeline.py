@@ -41,7 +41,7 @@ from ..ops.reductions import (
 from ..utils.logging import span
 
 __all__ = ["PipelineConfig", "rgb_to_gray_cv", "flow_chunk_program",
-           "stage_window", "upload_window", "WindowGraphs", "FlowAnalyzer",
+           "stage_window", "WindowGraphs", "FlowAnalyzer",
            "StreamingFlowAnalyzer"]
 
 ANALYSIS_SIZE = 256  # reference analyses at 256x256 gray (FunscriptFlow.pyw:1057)
@@ -156,15 +156,6 @@ def stage_window(views, need: int, pin: bool) -> torch.Tensor:
     np.stack(views, out=arr[: len(views)])
     arr[len(views):] = arr[len(views) - 1]  # pad with the last frame
     return host
-
-
-def upload_window(views, need: int, device: torch.device) -> torch.Tensor:
-    """:func:`stage_window` on ``device``: assembled in pinned host memory
-    when the device is a GPU and copied up without blocking, on the
-    caller's current stream (so the caching host allocator records the
-    stream that reads the buffer)."""
-    cuda = device.type == "cuda"
-    return stage_window(views, need, cuda).to(device, non_blocking=cuda)
 
 
 def _to_host(res: dict) -> dict:
@@ -393,24 +384,23 @@ class StreamingFlowAnalyzer:
     constant memory regardless of video length. Results are bitwise
     identical to ``FlowAnalyzer.analyze_video_pairs``.
 
-    Each window is assembled in pinned host memory and uploaded with a
-    non-blocking copy; the program is enqueued behind it and its outputs
-    stay on the card. One dispatch stays pending: window k+1 is enqueued
-    before window k's ``[B]`` outputs are copied back, so the host decodes
-    and assembles while the card computes.
+    On a card, each window is assembled in pinned host memory and uploaded
+    with a non-blocking copy; the program is enqueued behind it and its
+    outputs stay on the card. One window stays pending: window k+1 is
+    enqueued before window k's ``[B]`` outputs are copied back, so the
+    host decodes and assembles while the card computes.
 
     ``device``: ``None`` means ``cuda:0`` (raises without CUDA); the tests
     pass ``"cpu"``. ``n_pairs_total``: the video's known pair count (upper
     bound — a truncated container may deliver fewer, which flush() handles
     with real counts); knowing it enables the tail ramp-down.
 
-    ``mesh``: optional list of devices (``parallel.mesh.make_mesh``) — each
-    dispatch then covers ``n_devices * pair_batch`` pairs, one halo'd
-    window per device (``parallel.dp``), sent to the devices in turn from
-    the caller's thread. Per-pair results are bitwise identical to the
-    single-device path, because every emitted pair sees the same halo'd
-    frame window either way. Mutually exclusive with ``device``; a mesh
-    dispatches no ramp window and no tail ramp-down.
+    ``mesh``: optional list of devices (``parallel.mesh.make_mesh``),
+    mutually exclusive with ``device``, which is a mesh of one. The
+    windows are those of the one-device schedule, and window k runs on
+    ``mesh[k % len(mesh)]``, issued from the caller's thread; one window
+    per device stays pending. So the results, and the windows dispatched,
+    are the one device's.
 
     ``timers``: optional ``utils.logging.StageTimers``. Each window's
     upload, program and copy-back run in the spans ``ff.window.upload``,
@@ -418,14 +408,14 @@ class StreamingFlowAnalyzer:
     whose wall times add to its ``upload``, ``program`` and ``wait``
     stages.
 
-    On a CUDA device with no mesh, windows run through CUDA graphs, one
-    per window shape: the analyzer leases a set of them from the
-    process's (:data:`GRAPHS`) at its first window and returns it at
-    :meth:`flush` or :meth:`close`. The pinned window is copied straight
-    into the graph's static input and the graph is replayed.
-    ``windows_replayed`` and ``graphs_captured`` count this analyzer's
-    replays and captures; every other window ran eagerly. On the CPU and
-    over a mesh every window runs eagerly.
+    On a CUDA device, windows run through CUDA graphs, one per window
+    shape: the analyzer leases a set of them from the process's
+    (:data:`GRAPHS`) for each device at that device's first window and
+    returns them at :meth:`flush` or :meth:`close`. The pinned window is
+    copied straight into the graph's static input and the graph is
+    replayed. ``windows_replayed`` and ``graphs_captured`` count this
+    analyzer's replays and captures; every other window ran eagerly. On
+    the CPU every window runs eagerly.
     """
 
     KEYS = KEYS
@@ -435,10 +425,10 @@ class StreamingFlowAnalyzer:
         if mesh is not None and device is not None:
             raise ValueError("pass either a mesh or a device, not both")
         self.cfg = cfg or PipelineConfig()
-        self.mesh = None if mesh is None else list(mesh)
-        self.device = self.mesh[0] if mesh is not None else \
-            default_device(device)
-        self._D = 1 if mesh is None else len(self.mesh)
+        self.devices = (list(mesh) if mesh is not None
+                        else [default_device(device)])
+        self.device = self.devices[0]
+        self._D = len(self.devices)
         self._n_total = n_pairs_total
         self._timers = timers
         self.radius = CENTER_SMOOTH_RADIUS
@@ -447,9 +437,8 @@ class StreamingFlowAnalyzer:
         self._s = 0            # next pair index to emit
         self._n_frames = 0
         self._pending: list = []  # (device result dict, lo, hi)
-        self._graphs = GRAPHS if (mesh is None and
-                                  self.device.type == "cuda") else None
-        self._set = None  # the graphs leased for this clip, if any
+        self._graphs = GRAPHS if self.device.type == "cuda" else None
+        self._sets = [None] * self._D  # each device's leased graphs
         self.windows_dispatched = 0
         self.windows_replayed = 0
         self.graphs_captured = 0
@@ -464,52 +453,34 @@ class StreamingFlowAnalyzer:
         return b
 
     def _dispatch(self, e: int, n_total: int | None) -> None:
-        """Upload the window of pairs [s, e) plus halo (one window per
-        device of a mesh) and enqueue the program; its results stay on the
-        device until _drain."""
-        s, r, B = self._s, self.radius, self.cfg.pair_batch
-        if self.mesh is None:
-            segs = [(s, e)]
-            bucket = self._tail_bucket(e - s)
-        else:  # device d takes pairs [s + d*B, s + (d+1)*B) of [s, e)
-            segs = [(min(s + d * B, e), min(s + (d + 1) * B, e))
-                    for d in range(self._D)]
-            bucket = B
-        windows, n_valid, spans = [], [], []
-        for sd, ed in segs:
-            if ed <= sd:
-                continue  # a mesh tail that leaves this device no pairs
-            a = max(0, sd - r)
-            b = ed + r if n_total is None else min(n_total, ed + r)
-            windows.append(self._buf[a - self._base : b - self._base + 1])
-            n_valid.append(b - a)
-            spans.append((sd - a, ed - a))
-        need = bucket + 2 * r + 1
+        """Upload the window of pairs [s, e) plus halo to the next device
+        in turn and enqueue the program; its results stay on the device
+        until _drain."""
+        s, r = self._s, self.radius
+        a = max(0, s - r)
+        b = e + r if n_total is None else min(n_total, e + r)
+        views = self._buf[a - self._base : b - self._base + 1]
+        need = self._tail_bucket(e - s) + 2 * r + 1
+        d = self.windows_dispatched % self._D
         if self._graphs is not None:
             with span("ff.window.upload", self._timers):
-                host = stage_window(windows[0], need, pin=True)
-                if self._set is None:
-                    self._set = self._graphs.lease(self.cfg, self.device)
-                wg = self._set.load(host)
+                host = stage_window(views, need, pin=True)
+                if self._sets[d] is None:
+                    self._sets[d] = self._graphs.lease(self.cfg,
+                                                       self.devices[d])
+                wg = self._sets[d].load(host)
             with span("ff.window.program", self._timers):
-                out, replayed = self._set.run(wg, n_valid[0])
-                res = [out]
+                res, replayed = self._sets[d].run(wg, b - a)
             self.windows_replayed += replayed
             self.graphs_captured += not replayed
-        elif self.mesh is None:
-            with span("ff.window.upload", self._timers):
-                frames = upload_window(windows[0], need, self.device)
-            with span("ff.window.program", self._timers):
-                res = [flow_chunk_program(frames, n_valid[0], self.cfg)]
         else:
-            # imported here: parallel.dp imports this module
-            from ..parallel.dp import analyze_windows_sharded
-
+            with span("ff.window.upload", self._timers):
+                frames = stage_window(views, need, pin=False).to(
+                    self.devices[d])
             with span("ff.window.program", self._timers):
-                res = analyze_windows_sharded(windows, n_valid, self.cfg,
-                                              self.mesh[: len(windows)])
-        self.windows_dispatched += len(res)
-        self._pending.extend((rd, lo, hi) for rd, (lo, hi) in zip(res, spans))
+                res = flow_chunk_program(frames, b - a, self.cfg)
+        self.windows_dispatched += 1
+        self._pending.append((res, s - a, e - a))
         self._s = e
         drop = max(0, (self._s - r) - self._base)
         if drop:
@@ -569,14 +540,14 @@ class StreamingFlowAnalyzer:
         """Add decoded frames; returns a list of result dicts (maybe empty)."""
         self._buf.extend(frames)
         self._n_frames += len(frames)
-        B, r = self.cfg.pair_batch * self._D, self.radius
-        if (self.mesh is None and self._s == 0 and not self._pending
+        B, r = self.cfg.pair_batch, self.radius
+        if (self._s == 0 and not self._pending
                 and self._n_frames - 1 < B + r
                 and self._n_frames - 1 >= self.ramp_pairs + r):
             self._dispatch(self.ramp_pairs, None)
         while self._n_frames - 1 >= self._s + B + r:
             self._dispatch(self._s + B, None)
-        if self.mesh is None and self._n_total is not None:
+        if self._n_total is not None:
             self._ramp_down()
         return self._drain(keep=self._D)
 
@@ -592,7 +563,7 @@ class StreamingFlowAnalyzer:
         arrived)."""
         n_total = max(self._n_frames - 1, 0)
         while self._s < n_total:
-            e = min(self._s + self.cfg.pair_batch * self._D, n_total)
+            e = min(self._s + self.cfg.pair_batch, n_total)
             self._dispatch(e, n_total)
         out = self._drain(keep=0)
         self._release_graphs()
@@ -605,10 +576,13 @@ class StreamingFlowAnalyzer:
         self._release_graphs()
 
     def _release_graphs(self) -> None:
-        """Return the clip's graphs to the process's (:data:`GRAPHS`)."""
-        if self._set is not None:
-            self._graphs.release(self._set)
-            self._set = None
+        """Return the clip's graphs to the process's (:data:`GRAPHS`),
+        the last device's first: a mesh that names one device twice then
+        leases each set back to the entry whose window shapes it holds."""
+        for gs in reversed(self._sets):
+            if gs is not None:
+                self._graphs.release(gs)
+        self._sets = [None] * self._D
 
     @property
     def pairs_emitted(self) -> int:
@@ -616,5 +590,5 @@ class StreamingFlowAnalyzer:
 
     @property
     def n_devices(self) -> int:
-        """Devices each dispatch spans (1 unless a mesh shards windows)."""
+        """Devices the windows take turns over (1 without a mesh)."""
         return self._D

@@ -1,2 +1,1 @@
-"""Data parallelism over a device list (``dp``) and the time-axis-sharded
-signal chain (``signal_sp``)."""
+"""Device lists (``mesh``) that one clip's windows take turns over."""

@@ -1,9 +1,10 @@
-"""Device lists for the port's data and sequence parallelism.
+"""Device lists for the port's data parallelism.
 
 The JAX package builds a ``jax.sharding.Mesh`` and lets XLA compile the
 collectives; the port's counterpart is a plain list of ``torch.device``s
-that one process drives: each flow window, and each shard of the signal,
-is a tensor on its device (``parallel.dp``, ``parallel.signal_sp``).
+that one process drives: one clip's flow windows run on its devices in
+turn (``models.pipeline.StreamingFlowAnalyzer``), and a folder's clips
+run one per device (``runner``).
 """
 
 from __future__ import annotations

@@ -19,10 +19,10 @@ OpenCV (``io.decode``). ``on`` without a pump fails the clip with an
 ``ERROR`` line naming the cause; it never decodes through OpenCV. Each
 clip's log names the engine that decoded it.
 
-Beyond one clip on one device: ``--mesh N`` shards one clip's windows over
-N devices (``parallel.dp``) and its long signal over the same devices
-(``parallel.signal_sp``); a folder runs ``clip_workers`` clips in flight at
-once (:func:`resolve_clip_workers`), each worker on its own CUDA stream;
+Beyond one clip on one device: ``--mesh N`` runs one clip's windows on N
+devices in turn (``models.pipeline.StreamingFlowAnalyzer``); a folder
+runs ``clip_workers`` clips in flight at once
+(:func:`resolve_clip_workers`), each worker on its own CUDA stream;
 ``--checkpoint`` resumes a killed clip (``io.checkpoint``);
 ``--profile_dir`` traces the analysis loop (``utils.logging``).
 
@@ -58,7 +58,6 @@ from .ops import signal_host
 from .ops.reductions import CENTER_SMOOTH_RADIUS
 from .ops.signal import DISCONTINUITY_THRESHOLD, signal_chain_device
 from .parallel.mesh import make_mesh
-from .parallel.signal_sp import signal_chain_sharded
 from .utils.logging import StageTimers, profile_trace, span
 from .utils.params import Params
 from .utils.strings import STRINGS
@@ -80,24 +79,20 @@ class NativeDecodeUnavailable(RuntimeError):
 
 
 def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
-                    log_func=lambda m: None, device=None, mesh=None,
-                    timers=None):
+                    log_func=lambda m: None, device=None, timers=None):
     """Whole-video signal chain -> (funscript actions, norm curve).
 
     Window sizes derive from the effective fps (reference :1287, :1335).
     ``signal_backend='auto'`` runs the exact float64 host chain, except for
     signals of ``AUTO_DEVICE_MIN_SAMPLES`` or more with ``detrend_win >= 2``
     and no cumulative-flow discontinuity, which run on the device chain
-    (``ops.signal``, in float64) on ``device`` (``None`` means ``cuda:0``)
-    — or, when ``mesh`` lists more than one device and the signal is longer
-    than ``detrend_win``, on the float32 time-axis-sharded chain over
-    those devices (``parallel.signal_sp``); ``'device'`` forces the
-    one-device chain, ``'host'`` the host chain. It runs in the span
-    ``ff.signal_chain`` (``utils.logging.span``), whose wall time adds to
-    the ``signal_chain`` stage of ``timers``. Inside it,
-    ``ff.signal.route`` holds ``auto``'s host integration and
-    discontinuity check (only where that check runs) and
-    ``ff.signal.device`` the one-device chain with the copies of its curve
+    (``ops.signal``, in float64) on ``device`` (``None`` means
+    ``cuda:0``); ``'device'`` forces the device chain, ``'host'`` the host
+    chain. It runs in the span ``ff.signal_chain``
+    (``utils.logging.span``), whose wall time adds to the ``signal_chain``
+    stage of ``timers``. Inside it, ``ff.signal.route`` holds ``auto``'s
+    host integration and discontinuity check (only where that check runs)
+    and ``ff.signal.device`` the device chain with the copies of its curve
     and keyframe mask back to the host.
     """
     with span("ff.signal_chain", timers):
@@ -114,9 +109,7 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
                     clean = not (np.abs(np.diff(cum))
                                  > DISCONTINUITY_THRESHOLD).any()
                 if clean:
-                    backend = "sharded" if (
-                        mesh is not None and len(mesh) > 1
-                        and n > detrend_win) else "device"
+                    backend = "device"
 
         if backend == "host":
             log_func(f"Signal chain: host ({n} samples).")
@@ -125,25 +118,17 @@ def compute_actions(dots, cuts, time_stamps, fps, effective_fps, params: Params,
                 params.keyframe_reduction,
             )[0:2]
 
-        if backend == "sharded":
-            log_func(f"Signal chain: time-axis sharded over {len(mesh)} "
-                     f"devices ({n} samples).")
-            norm, mask = signal_chain_sharded(
-                np.asarray(dots, np.float32), np.asarray(cuts, bool), mesh,
-                detrend_win, norm_win)
-            norm = norm.astype(np.float64)
-        else:
-            dev = default_device(device)
-            log_func(f"Signal chain: device ({n} samples on {dev}).")
-            if n == 0:
-                return [], np.zeros(0, np.float64)
-            with span("ff.signal.device"):
-                norm, mask = signal_chain_device(
-                    torch.as_tensor(np.asarray(dots, np.float64), device=dev),
-                    torch.as_tensor(np.asarray(cuts, bool), device=dev),
-                    n, detrend_win, norm_win)
-                norm = norm.cpu().numpy().astype(np.float64)
-                mask = mask.cpu().numpy()
+        dev = default_device(device)
+        log_func(f"Signal chain: device ({n} samples on {dev}).")
+        if n == 0:
+            return [], np.zeros(0, np.float64)
+        with span("ff.signal.device"):
+            norm, mask = signal_chain_device(
+                torch.as_tensor(np.asarray(dots, np.float64), device=dev),
+                torch.as_tensor(np.asarray(cuts, bool), device=dev),
+                n, detrend_win, norm_win)
+            norm = norm.cpu().numpy().astype(np.float64)
+            mask = mask.cpu().numpy()
         if not params.keyframe_reduction:
             idx = range(n)
         elif n == 1:
@@ -286,8 +271,9 @@ def process_video(video_path: str, params: Params, log_func,
     (a list of up to n uint8 [256, 256] gray frames, fewer at EOF) and
     ``close()``. ``device``: ``None`` means ``cuda:0`` and raises without
     CUDA; ``"cpu"`` runs the plain twins on the CPU. With ``params.mesh``
-    > 1 the clip's windows shard over that many devices of ``device``'s
-    type (``parallel.mesh.make_mesh``).
+    > 1 the clip's windows take turns over that many devices of
+    ``device``'s type (``parallel.mesh.make_mesh``), and a long clip's
+    signal chain runs on the first.
     """
     try:
         dev = default_device(device)
@@ -419,15 +405,11 @@ def _process_clip(video_path, params: Params, log_func, progress_callback,
             ckpt_save()  # cancel -> resumable
         return False
 
-    # Priming: one device's first pull carries the ramp window plus its
-    # halo, so the card starts as soon as a small first window has decoded;
-    # a mesh's first pull carries one whole window per device plus the
-    # halo. Then one dispatch's worth of frames per pull.
+    # Priming: the first pull carries the ramp window plus its halo, so the
+    # card starts as soon as a small first window has decoded; then one
+    # window per device a pull.
     pull = cfg.pair_batch * analyzer.n_devices
-    if mesh is None:
-        next_pull = analyzer.ramp_pairs + analyzer.radius + 1
-    else:
-        next_pull = pull + 2 * analyzer.radius + 1
+    next_pull = analyzer.ramp_pairs + analyzer.radius + 1
     try:
         with profile_trace(params.profile_dir):
             while True:
@@ -485,7 +467,7 @@ def _process_clip(video_path, params: Params, log_func, progress_callback,
     error_occurred = False
     actions, _norm = compute_actions(
         dots, cuts, time_stamps, meta.fps, meta.effective_fps, params,
-        log_func, device=dev, mesh=mesh, timers=timers,
+        log_func, device=analyzer.device, timers=timers,
     )
     log_func(f"Keyframe reduction: {len(actions)} actions computed.")
     try:

@@ -36,7 +36,7 @@ class Params:
     use_native_decode: str = "auto"  # auto | on | off (native decode runtime)
     decode_quality: str = "fast"     # fast | exact (native decode engines)
     dis_preset: str = "fast"         # ultrafast | fast | medium (DIS backend)
-    mesh: int = 0                    # shard pair windows over N devices
+    mesh: int = 0                    # one clip's windows on N devices in turn
     clip_workers: int = 0            # folder mode: concurrent in-flight clips
     profile_dir: str = ""            # profiler trace dir ("" = off)
     checkpoint: bool = False         # intra-video resume sidecars

@@ -3,7 +3,7 @@
 On the CPU: the valid-pair count as a 0-d tensor (a graph's static input)
 gives the int form's results bit for bit, DIS's patch-centre tables are
 the former host-built ones, graphed launches are counted apart, the CPU
-and mesh paths stay eager, a lease drops the idle graphs of other
+path stays eager (a CPU mesh's too), a lease drops the idle graphs of other
 configurations, and a graph whose run raised is dropped. On a card (the
 ``cuda`` marker; skipped without one): graphed windows equal the eager
 program bit for bit for both flow algorithms and every window bucket,

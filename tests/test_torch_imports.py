@@ -42,8 +42,6 @@ def test_port_modules_listed():
                  "funscript_flow_tpu_torch.io.decode",
                  "funscript_flow_tpu_torch.io.checkpoint",
                  "funscript_flow_tpu_torch.parallel.mesh",
-                 "funscript_flow_tpu_torch.parallel.dp",
-                 "funscript_flow_tpu_torch.parallel.signal_sp",
                  "funscript_flow_tpu_torch.utils.devprof",
                  "funscript_flow_tpu_torch.utils.backends",
                  "funscript_flow_tpu_torch.utils.logging",

@@ -1,7 +1,7 @@
-"""The port's parallel paths on the CPU: window DP over a device list
-(bitwise equal to one device), the time-axis-sharded signal chain against
-the JAX package's on the virtual 8-device CPU mesh, the folder workers and
-the thread-safe launch counts.
+"""The port's parallel paths on the CPU: one clip's windows over a device
+list (bitwise equal to one device, the same windows, and the same
+funscript on the long-clip route), the folder workers and the thread-safe
+launch counts.
 
 A "mesh" here is ``make_mesh(k, device="cpu")``: k entries of the CPU
 device, the port's counterpart of the JAX package's virtual CPU mesh.
@@ -17,10 +17,6 @@ import pytest
 import torch
 
 import reference_cv as ref
-from funscript_flow_tpu.ops import signal_host as jsh
-from funscript_flow_tpu.parallel.mesh import make_mesh as jax_make_mesh
-from funscript_flow_tpu.parallel.signal_sp import \
-    signal_chain_sharded as jax_signal_chain_sharded
 from funscript_flow_tpu_torch import runner as trun
 from funscript_flow_tpu_torch.io.decode import VideoMeta
 from funscript_flow_tpu_torch.models.pipeline import (FlowAnalyzer,
@@ -28,10 +24,7 @@ from funscript_flow_tpu_torch.models.pipeline import (FlowAnalyzer,
                                                       StreamingFlowAnalyzer)
 from funscript_flow_tpu_torch.ops import cuda as kcuda
 from funscript_flow_tpu_torch.ops.cuda import _build
-from funscript_flow_tpu_torch.parallel.dp import (analyze_multichip,
-                                                  shard_video_windows)
 from funscript_flow_tpu_torch.parallel.mesh import make_mesh
-from funscript_flow_tpu_torch.parallel.signal_sp import signal_chain_sharded
 from funscript_flow_tpu_torch.utils.params import Params
 
 # the tests run in several worker processes at once: one torch thread
@@ -99,25 +92,29 @@ def test_make_mesh():
             make_mesh(2)
 
 
-@pytest.mark.parametrize("n_devices", [2, 4])
-def test_streaming_analyzer_mesh_bitwise_identical(n_devices):
+@pytest.mark.parametrize("n_pairs_total", [60, None])
+@pytest.mark.parametrize("n_devices", [1, 2, 3, 4, 8])
+def test_streaming_analyzer_mesh_bitwise_identical(n_devices, n_pairs_total):
     """The contract of tests/test_mesh_feature.py:35-51: a mesh gives the
-    single-device results bit for bit."""
+    single-device results bit for bit, through the same windows (the ramp
+    window and, with a known total, the tail ramp-down); ``make_mesh(1)``
+    is the device as a mesh of one."""
     frames = np.random.default_rng(0).integers(0, 256, (61, 64, 64, 3),
                                                dtype=np.uint8)
     cfg = PipelineConfig(pair_batch=8)
 
     def run(**kw):
-        an = StreamingFlowAnalyzer(cfg, n_pairs_total=60, **kw)
+        an = StreamingFlowAnalyzer(cfg, n_pairs_total=n_pairs_total, **kw)
         res = []
         for s in range(0, len(frames), 13):
             res.extend(an.push(list(frames[s:s + 13])))
         res.extend(an.flush())
         return an, {k: np.concatenate([r[k] for r in res]) for k in an.KEYS}
 
-    _, single = run(device=CPU)
+    one, single = run(device=CPU)
     an, sharded = run(mesh=make_mesh(n_devices, device=CPU))
     assert an.n_devices == n_devices and an.pairs_emitted == 60
+    assert an.windows_dispatched == one.windows_dispatched
     assert single["dots"].shape == sharded["dots"].shape == (60,)
     for k in single:
         np.testing.assert_array_equal(single[k], sharded[k])
@@ -129,134 +126,39 @@ def test_analyzer_mesh_and_device_exclusive():
                               mesh=make_mesh(2, device=CPU))
 
 
-def test_dp_video_shorter_than_mesh():
-    """tests/test_parallel.py:34-39: 5 pairs over 8 devices of 4 pairs."""
+@pytest.mark.parametrize("n_devices", [2, 8])
+def test_clip_shorter_than_mesh(n_devices):
+    """tests/test_parallel.py:34-39: 5 pairs, flushed in windows of one
+    pair: more windows than a mesh of 2 and fewer than a mesh of 8, equal
+    bit for bit to the whole-clip driver."""
     frames = np.stack(ref.make_synthetic_frames(6, h=48, w=48, period=4,
                                                 seed=1))
-    got = analyze_multichip(frames, PipelineConfig(pair_batch=4),
-                            make_mesh(8, device=CPU))
+    an = StreamingFlowAnalyzer(PipelineConfig(pair_batch=1),
+                               mesh=make_mesh(n_devices, device=CPU))
+    res = an.push(list(frames)) + an.flush()
     want = FlowAnalyzer(PipelineConfig(pair_batch=8),
                         device=CPU).analyze_video_pairs(frames)
+    assert an.windows_dispatched == 5
     for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(
+            np.concatenate([r[k] for r in res]), want[k], err_msg=k)
 
 
-def test_shard_video_windows_halos():
-    frames = np.arange(11)[:, None, None] * np.ones((1, 2, 2), np.uint8)
-    windows, n_valid, lo, hi = shard_video_windows(frames, 3, 4)
-    assert windows.shape == (3, 4 + 12 + 1, 2, 2)
-    # window d covers pairs [4d, 4d + 4), its 6-pair halo clipped at 0
-    # and at the last pair, 10
-    np.testing.assert_array_equal(n_valid, [10, 10, 8])
-    np.testing.assert_array_equal(lo, [0, 4, 6])
-    np.testing.assert_array_equal(hi, [4, 8, 8])
-    assert windows[2, -1, 0, 0] == 10  # padded with the last frame
-
-
-# --------------------------------------------------- sharded signal chain
-
-SP_CASES = [(731, 60, 91), (1000, 61, 90)]
-_JAX_SP: dict = {}
-
-
-def _sp_signal(n):
-    rng = np.random.default_rng(n)
-    return rng.normal(0, 3, n), rng.random(n) < 0.03
-
-
-def _jax_sp(n, dwin, nwin, D):
-    """The JAX sharded chain on the virtual CPU mesh, once per module."""
-    key = (n, dwin, nwin, D)
-    if key not in _JAX_SP:
-        dots, cuts = _sp_signal(n)
-        _JAX_SP[key] = tuple(np.asarray(a) for a in jax_signal_chain_sharded(
-            dots, cuts, jax_make_mesh(D), dwin, nwin))
-    return _JAX_SP[key]
-
-
-@pytest.mark.parametrize("D", [2, 4, 8])
-@pytest.mark.parametrize("n,dwin,nwin", SP_CASES)
-def test_sp_signal_chain_matches_jax(n, dwin, nwin, D, record_property):
-    """Bars of tests/test_parallel.py:43-68: within 1e-3 of the JAX
-    sharded chain, within 0.5 of the host chain, keyframes agreeing at
-    least 95%."""
-    dots, cuts = _sp_signal(n)
-    norm, mask = signal_chain_sharded(dots, cuts, make_mesh(D, device=CPU),
-                                      dwin, nwin)
-    jnorm, jmask = _jax_sp(n, dwin, nwin, D)
-    assert norm.shape == mask.shape == (n,)
-    record_property("max_abs_err_vs_jax", float(np.abs(norm - jnorm).max()))
-    np.testing.assert_allclose(norm, jnorm, atol=1e-3)
-    cum = jsh.integrate_flow(dots, cuts)
-    want = jsh.rolling_normalize(jsh.binomial_smooth(jsh.detrend(cum, dwin)),
-                                 nwin)
-    np.testing.assert_allclose(norm, want, atol=0.5)
-    for got_mask, ref_idx in ((mask, sorted(set(jsh.keyframe_indices(want)))),
-                              (mask, list(np.nonzero(jmask)[0]))):
-        got_idx = set(np.nonzero(got_mask)[0])
-        agree = len(got_idx & set(ref_idx)) / max(len(ref_idx), 1)
-        assert agree >= 0.95, agree
-
-
-def test_sp_halo_wider_than_a_shard():
-    """Shards shorter than the detrend halo take it from several
-    neighbours; one shard equals the one-device chain bitwise."""
-    from funscript_flow_tpu_torch.ops.signal import signal_chain_device
-
-    dots, cuts = _sp_signal(100)
-    want, wmask = signal_chain_device(torch.tensor(dots, dtype=torch.float32),
-                                      torch.tensor(cuts), 100, 60, 91)
-    one, one_mask = signal_chain_sharded(dots, cuts, [torch.device(CPU)],
-                                         60, 91)
-    np.testing.assert_array_equal(one, want.numpy())
-    np.testing.assert_array_equal(one_mask, wmask.numpy())
-    many, _ = signal_chain_sharded(dots, cuts, make_mesh(16, device=CPU),
-                                   60, 91)  # 7 samples per shard
-    np.testing.assert_allclose(many, want.numpy(), atol=1e-3)
-
-
-def test_compute_actions_routes_to_sharded_chain(monkeypatch):
-    """tests/test_parallel.py:71-104: with a multi-device mesh and a long
-    clean signal, ``auto`` runs the sharded chain, within the device-path
-    tolerance of the host path; without a mesh, the one-device chain."""
-    n = 4096
-    monkeypatch.setattr(trun, "AUTO_DEVICE_MIN_SAMPLES", 1024)
-    rng = np.random.default_rng(1)
-    dots = rng.normal(0, 3, n)
-    cuts = rng.random(n) < 0.01
-    ts = np.arange(n) * 2
-    logs = []
-    actions, norm = trun.compute_actions(
-        dots, cuts, ts, 60.0, 30.0, Params(), logs.append, device=CPU,
-        mesh=make_mesh(4, device=CPU))
-    assert any("time-axis sharded over 4 devices" in m for m in logs), logs
-    want_actions, want_norm = trun.compute_actions(
-        dots, cuts, ts, 60.0, 30.0, Params(signal_backend="host"))
-    np.testing.assert_allclose(norm, want_norm, atol=0.5)
-    want_at = {a["at"]: a["pos"] for a in want_actions}
-    got_at = {a["at"]: a["pos"] for a in actions}
-    shared = set(want_at) & set(got_at)
-    assert len(shared) / max(len(want_at), 1) > 0.95
-    assert all(abs(want_at[t] - got_at[t]) <= 1 for t in shared)
-    for mesh in (None, make_mesh(1, device=CPU)):
-        logs = []
-        trun.compute_actions(dots, cuts, ts, 60.0, 30.0, Params(),
-                             logs.append, device=CPU, mesh=mesh)
-        assert any("Signal chain: device" in m for m in logs), logs
-
-
-def test_process_video_mesh(fake_folder, monkeypatch):
-    """tests/test_parallel.py:107-146: process_video with --mesh 2 writes
-    the one-device funscript byte for byte on the host chain, and routes a
-    long clean signal through the sharded chain within a position unit."""
+@pytest.mark.parametrize("n_devices", [2, 4, 8])
+def test_process_video_mesh(fake_folder, monkeypatch, n_devices):
+    """tests/test_parallel.py:107-146: process_video with --mesh N writes
+    the one-device funscript byte for byte, on the host chain and on the
+    long-clip route, where a mesh takes the one-device float64 chain; that
+    route stays within a position unit of the host chain."""
     folder, names = fake_folder
     video = str(folder / names[2])
     out = video.replace(".mp4", ".funscript")
     outs = {}
     monkeypatch.setattr(trun, "AUTO_DEVICE_MIN_SAMPLES", 32)
     for label, kw in (("one", dict(signal_backend="host")),
-                      ("mesh", dict(mesh=2, signal_backend="host")),
-                      ("sharded", dict(mesh=2))):
+                      ("mesh", dict(mesh=n_devices, signal_backend="host")),
+                      ("auto", {}),
+                      ("auto_mesh", dict(mesh=n_devices))):
         logs = []
         # a 1 s detrend window (30 samples) is shorter than the clip's 55
         assert not trun.process_video(video, Params(overwrite=True,
@@ -264,13 +166,15 @@ def test_process_video_mesh(fake_folder, monkeypatch):
                                                     detrend_window=1.0, **kw),
                                       logs.append, device=CPU), logs
         outs[label] = open(out, "rb").read()
-        if label != "one":
-            assert any("Mesh: 2 devices (cpu)" in m for m in logs), logs
-        if label == "sharded":
-            assert any("time-axis sharded over 2" in m for m in logs), logs
+        if "mesh" in label:
+            assert any(f"Mesh: {n_devices} devices (cpu)" in m
+                       for m in logs), logs
+        if label.startswith("auto"):
+            assert any("Signal chain: device" in m for m in logs), logs
     assert outs["mesh"] == outs["one"]
+    assert outs["auto_mesh"] == outs["auto"]
     want = {a["at"]: a["pos"] for a in json.loads(outs["one"])["actions"]}
-    got = {a["at"]: a["pos"] for a in json.loads(outs["sharded"])["actions"]}
+    got = {a["at"]: a["pos"] for a in json.loads(outs["auto_mesh"])["actions"]}
     shared = set(want) & set(got)
     assert len(shared) / len(want) > 0.9
     assert all(abs(want[t] - got[t]) <= 1 for t in shared)
