@@ -1175,14 +1175,14 @@ def graph_trace_phase(torch, dev, card, frames, algorithm: str) -> None:
     gset = graphs.lease(cfg, dev)
     host = torch.from_numpy(np.stack(frames[: B_MAIN + 1])).pin_memory()
     for replay in (False, True):  # eager and captured, then a warm replay
-        got = gset.run(gset.load(host), B_MAIN)[1]
+        _, _, got = gset.run(gset.load(host), B_MAIN)
         check(got is replay, f"graph {algorithm}: replayed {got}, "
                              f"expected {replay}")
     torch.cuda.synchronize()
     kcuda.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        check(gset.run(gset.load(host), B_MAIN)[1],
+        check(gset.run(gset.load(host), B_MAIN)[2],
               f"graph {algorithm}: the traced window was not replayed")
         torch.cuda.synchronize()
     counts = kcuda.launch_counts()

@@ -15,7 +15,9 @@ graphs (:class:`WindowGraphs`), one per window shape: the first window of
 a shape runs eagerly and the program is captured after it; every later
 window of that shape is a copy into the graph's static input and one
 replay of the same kernels in the same order, so its results are bitwise
-those of the eager program.
+those of the eager program. Each window's outputs are copied to pinned
+host memory right behind its program, and an event behind the copies
+tells the analyzer when they have landed.
 """
 
 from __future__ import annotations
@@ -162,6 +164,24 @@ def _to_host(res: dict) -> dict:
     return {k: res[k].cpu().numpy() for k in KEYS}
 
 
+def _copy_back(res: dict) -> tuple:
+    """Enqueue copies of the ``KEYS`` outputs ``res`` (on a CUDA device)
+    into new pinned host tensors, on that device's current stream, and an
+    event behind them: (host tensors, event). Nothing waits here: the
+    host tensors hold the outputs once the event has completed. The
+    caching host allocator hands a buffer out again only after the
+    copies into it have run."""
+    stream = torch.cuda.current_stream(res["dots"].device)
+    host = {}
+    for k in KEYS:
+        host[k] = torch.empty(res[k].shape, dtype=res[k].dtype,
+                              pin_memory=True)
+        host[k].copy_(res[k], non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(stream)
+    return host, event
+
+
 # one capture at a time in a process (captures are set-up, rare and short)
 _capture_lock = threading.Lock()
 
@@ -183,20 +203,23 @@ class _WindowGraph:
 
     @torch.inference_mode()
     def run(self, n_valid: int, pool, side) -> tuple:
-        """(the program's ``KEYS`` outputs, whether a graph was replayed).
-        Uncaptured, the program runs eagerly for its result and is then
-        captured on the stream ``side`` into the memory pool ``pool``
-        (``None``: a new one); captured, the graph is replayed and its
-        outputs are cloned at once, since the next replay overwrites them
-        while this window's results wait to be copied back."""
+        """(the program's ``KEYS`` outputs in pinned host memory, the event
+        behind their copies, whether a graph was replayed). Uncaptured,
+        the program runs eagerly for its result and is then captured on
+        the stream ``side`` into the memory pool ``pool`` (``None``: a new
+        one); captured, the graph is replayed. Either way the outputs'
+        copies to the host are enqueued at once, behind the program on
+        the current stream, so the next replay, which overwrites the
+        graph's outputs, runs after them (:func:`_copy_back`)."""
         self.n_valid.fill_(n_valid)
         if self.graph is None:
             res = flow_chunk_program(self.frames, self.n_valid, self.cfg)
+            host, event = _copy_back(res)
             self._capture(pool, side)
-            return {k: res[k] for k in KEYS}, False
+            return host, event, False
         self.graph.replay()
         add_launches(self.launches)
-        return {k: self.out[k].clone() for k in KEYS}, True
+        return (*_copy_back(self.out), True)
 
     def _capture(self, pool, side) -> None:
         """Capture the program, one capture at a time. Thread-local
@@ -224,7 +247,7 @@ class _GraphSet:
     largest window's pool rather than the sum of them. That is safe
     because the set is leased to one caller at a time and its graphs run
     one after another on that caller's stream, each replay's outputs
-    cloned before the next replay."""
+    copied to the host on that stream before the next replay."""
 
     def __init__(self, key, cfg: PipelineConfig, device: torch.device):
         self.key, self.cfg, self.device = key, cfg, device
@@ -260,14 +283,14 @@ class _GraphSet:
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
         try:
-            out, replayed = wg.run(n_valid, self.pool, self._side)
+            host, event, replayed = wg.run(n_valid, self.pool, self._side)
         except BaseException:
             self.graphs = {s: g for s, g in self.graphs.items()
                            if g is not wg}
             raise
         if self.pool is None:
             self.pool = wg.graph.pool()
-        return out, replayed
+        return host, event, replayed
 
     def drop(self) -> None:
         """Let the graphs go, once the card has run their last work."""
@@ -385,10 +408,13 @@ class StreamingFlowAnalyzer:
     identical to ``FlowAnalyzer.analyze_video_pairs``.
 
     On a card, each window is assembled in pinned host memory and uploaded
-    with a non-blocking copy; the program is enqueued behind it and its
-    outputs stay on the card. One window stays pending: window k+1 is
-    enqueued before window k's ``[B]`` outputs are copied back, so the
-    host decodes and assembles while the card computes.
+    with a non-blocking copy; the program is enqueued behind it, and
+    behind that the copies of its ``[B]`` outputs to pinned host memory
+    and an event. One window stays pending: window k+1 is enqueued before
+    window k is drained, and draining window k waits for window k's event
+    alone, so the card runs window k+1 while the host decodes, assembles
+    and issues window k+2. On the CPU a window's outputs are copied back
+    when it is drained.
 
     ``device``: ``None`` means ``cuda:0`` (raises without CUDA); the tests
     pass ``"cpu"``. ``n_pairs_total``: the video's known pair count (upper
@@ -403,10 +429,10 @@ class StreamingFlowAnalyzer:
     are the one device's.
 
     ``timers``: optional ``utils.logging.StageTimers``. Each window's
-    upload, program and copy-back run in the spans ``ff.window.upload``,
-    ``ff.window.program`` and ``ff.window.wait`` (``utils.logging.span``),
-    whose wall times add to its ``upload``, ``program`` and ``wait``
-    stages.
+    upload, program (its copy-back enqueued with it) and drain run in the
+    spans ``ff.window.upload``, ``ff.window.program`` and
+    ``ff.window.wait`` (``utils.logging.span``), whose wall times add to
+    its ``upload``, ``program`` and ``wait`` stages.
 
     On a CUDA device, windows run through CUDA graphs, one per window
     shape: the analyzer leases a set of them from the process's
@@ -436,7 +462,7 @@ class StreamingFlowAnalyzer:
         self._base = 0         # absolute frame index of _buf[0]
         self._s = 0            # next pair index to emit
         self._n_frames = 0
-        self._pending: list = []  # (device result dict, lo, hi)
+        self._pending: list = []  # (outputs, copy-back event or None, lo, hi)
         self._graphs = GRAPHS if self.device.type == "cuda" else None
         self._sets = [None] * self._D  # each device's leased graphs
         self.windows_dispatched = 0
@@ -454,8 +480,9 @@ class StreamingFlowAnalyzer:
 
     def _dispatch(self, e: int, n_total: int | None) -> None:
         """Upload the window of pairs [s, e) plus halo to the next device
-        in turn and enqueue the program; its results stay on the device
-        until _drain."""
+        in turn and enqueue the program: on a card, with the copies of its
+        outputs to pinned host memory and an event behind them; on the
+        CPU, its outputs stay where they are until _drain."""
         s, r = self._s, self.radius
         a = max(0, s - r)
         b = e + r if n_total is None else min(n_total, e + r)
@@ -470,7 +497,7 @@ class StreamingFlowAnalyzer:
                                                        self.devices[d])
                 wg = self._sets[d].load(host)
             with span("ff.window.program", self._timers):
-                res, replayed = self._sets[d].run(wg, b - a)
+                res, event, replayed = self._sets[d].run(wg, b - a)
             self.windows_replayed += replayed
             self.graphs_captured += not replayed
         else:
@@ -479,8 +506,9 @@ class StreamingFlowAnalyzer:
                     self.devices[d])
             with span("ff.window.program", self._timers):
                 res = flow_chunk_program(frames, b - a, self.cfg)
+            event = None
         self.windows_dispatched += 1
-        self._pending.append((res, s - a, e - a))
+        self._pending.append((res, event, s - a, e - a))
         self._s = e
         drop = max(0, (self._s - r) - self._base)
         if drop:
@@ -488,14 +516,22 @@ class StreamingFlowAnalyzer:
             self._base += drop
 
     def _drain(self, keep: int) -> list:
-        """Copy results back for pending windows down to ``keep``."""
+        """Hand out the results of the pending windows down to ``keep``, in
+        dispatch order. A card's window waits for its own copy-back event,
+        not for the windows queued behind it, and its outputs are copied
+        out of the pinned buffers, which the allocator then gives to later
+        windows; a CPU window's outputs are copied back here."""
         out = []
         while len(self._pending) > keep:
-            res, lo, hi = self._pending.pop(0)
+            res, event, lo, hi = self._pending.pop(0)
             if hi <= lo:
                 continue
             with span("ff.window.wait", self._timers):
-                np_res = _to_host(res)
+                if event is None:
+                    np_res = _to_host(res)
+                else:
+                    event.synchronize()
+                    np_res = {k: res[k].numpy().copy() for k in KEYS}
             out.append({k: np_res[k][lo:hi] for k in KEYS})
         return out
 

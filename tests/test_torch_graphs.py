@@ -4,13 +4,16 @@ On the CPU: the valid-pair count as a 0-d tensor (a graph's static input)
 gives the int form's results bit for bit, DIS's patch-centre tables are
 the former host-built ones, graphed launches are counted apart, the CPU
 path stays eager (a CPU mesh's too), a lease drops the idle graphs of other
-configurations, and a graph whose run raised is dropped. On a card (the
-``cuda`` marker; skipped without one): graphed windows equal the eager
-program bit for bit for both flow algorithms and every window bucket,
-one configuration's graphs share one pool, pending windows do not alias,
-threads on streams of their own get graphs of their own, a replay counts
-the eager program's launches, and another configuration's lease gives
-the first one's memory back to the card.
+configurations, a graph whose run raised is dropped, and the drain waits
+on each window's copy-back event once, in order, and hands out copies.
+On a card (the ``cuda`` marker; skipped without one): graphed windows
+equal the eager program bit for bit for both flow algorithms and every
+window bucket, their outputs land in pinned host memory, one
+configuration's graphs share one pool, pending windows do not alias, a
+drain returns while the next window's work still runs, threads on
+streams of their own get graphs of their own, a replay counts the eager
+program's launches, and another configuration's lease gives the first
+one's memory back to the card.
 
 This file imports nothing of JAX, so on a machine without it the card's
 cases run with ``python -m pytest --noconftest tests/test_torch_graphs.py``.
@@ -218,6 +221,98 @@ def test_failed_run_drops_the_graph():
     assert gset.pool is None
 
 
+class _Event:
+    """A stand-in for a window's copy-back event: logs each wait and
+    gives the window's host buffers back to their ring."""
+
+    def __init__(self, window, log, ring, buf):
+        self.window, self.log, self.ring, self.buf = window, log, ring, buf
+
+    def synchronize(self):
+        self.log.append(self.window)
+        self.ring.append(self.buf)
+
+
+class _RingSet:
+    """A stand-in graph set on the CPU: runs the program eagerly and puts
+    each window's outputs into host buffers from a ring, which a window's
+    event gives back once waited on, as the caching host allocator does
+    with a drained window's pinned buffers."""
+
+    def __init__(self, cfg):
+        self.cfg, self.log, self.ring, self.windows = cfg, [], [], 0
+
+    def load(self, host):
+        return host
+
+    def run(self, frames, n_valid):
+        res = flow_chunk_program(frames, n_valid, self.cfg)
+        buf = (self.ring.pop(0) if self.ring
+               else {k: torch.empty_like(res[k]) for k in KEYS})
+        for k in KEYS:
+            buf[k].copy_(res[k])
+        event = _Event(self.windows, self.log, self.ring, buf)
+        self.windows += 1
+        return buf, event, True
+
+
+class _OneSet:
+    """A stand-in for the process's graphs that leases one set."""
+
+    def __init__(self, gset):
+        self.gset, self.released = gset, 0
+
+    def lease(self, cfg, device):
+        return self.gset
+
+    def release(self, gset):
+        assert gset is self.gset
+        self.released += 1
+
+
+@pytest.mark.parametrize("n_frames,total", [(75, True), (75, False),
+                                            (130, True)])
+def test_drain_waits_on_each_event_once(n_frames, total, monkeypatch):
+    """The graph path's drain waits on each window's copy-back event
+    exactly once, in dispatch order, copies nothing back itself (no
+    ``.cpu()``, no stream or device sync) and hands out arrays that keep
+    their window's values after later windows reuse its buffers: the
+    clip equals the eager program's bit for bit."""
+    frames = moving_frames(n_frames, 32, seed=n_frames)
+    cfg = PipelineConfig(pair_batch=16)
+    want = FlowAnalyzer(cfg, device="cpu").analyze_video_pairs(frames)
+    gset = _RingSet(cfg)
+    an = StreamingFlowAnalyzer(
+        cfg, device="cpu", n_pairs_total=n_frames - 1 if total else None)
+    an._graphs = _OneSet(gset)
+    stage = pipeline.stage_window
+    monkeypatch.setattr(pipeline, "stage_window",  # no pinned memory here
+                        lambda views, need, pin: stage(views, need, False))
+
+    def no_sync(*a, **kw):
+        raise AssertionError("the drain copied back or synchronised")
+
+    monkeypatch.setattr(torch.Tensor, "cpu", no_sync)
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    monkeypatch.setattr(torch.cuda, "current_stream", no_sync)
+    results = []
+    for i in range(0, len(frames), 20):
+        results.extend(an.push(list(frames[i: i + 20])))
+        assert len(gset.log) == max(0, gset.windows - 1)  # one pending
+    first = {k: results[0][k].copy() for k in KEYS}
+    results.extend(an.flush())
+    monkeypatch.undo()
+    assert gset.windows == an.windows_dispatched > 2
+    assert gset.log == list(range(gset.windows))
+    assert len(gset.ring) < gset.windows  # buffers were reused
+    assert an.windows_replayed == an.windows_dispatched
+    assert an._graphs.released == 1
+    for k in KEYS:
+        np.testing.assert_array_equal(results[0][k], first[k], err_msg=k)
+        got = np.concatenate([r[k] for r in results])
+        np.testing.assert_array_equal(got, want[k], err_msg=k)
+
+
 class _ListSource:
     def __init__(self, frames):
         self._frames, self._i = list(frames), 0
@@ -264,9 +359,14 @@ def cuda_device():
 
 
 def _window(gset, frames: np.ndarray, n_valid: int):
-    """One window through the leased set ``gset``: copy in, run."""
-    return gset.run(gset.load(torch.from_numpy(frames).pin_memory()),
-                    n_valid)
+    """One window through the leased set ``gset``: copy in, run, wait for
+    its copy-back; (its outputs in pinned host memory, whether a graph
+    was replayed)."""
+    host, event, replayed = gset.run(
+        gset.load(torch.from_numpy(frames).pin_memory()), n_valid)
+    event.synchronize()
+    assert all(host[k].is_pinned() for k in KEYS)
+    return host, replayed
 
 
 def _eager(frames: np.ndarray, n_valid: int, cfg, dev) -> dict:
@@ -276,7 +376,7 @@ def _eager(frames: np.ndarray, n_valid: int, cfg, dev) -> dict:
 
 def _assert_equal(got: dict, want: dict, what: str) -> None:
     for k in KEYS:
-        assert same_bits(got[k], want[k]), f"{what}: {k} differs"
+        assert same_bits(got[k].cpu(), want[k].cpu()), f"{what}: {k} differs"
 
 
 @pytest.mark.cuda
@@ -346,6 +446,59 @@ def test_pending_windows_do_not_alias(cuda_device, algorithm):
         if run:
             assert an.windows_replayed == an.windows_dispatched
             assert an.graphs_captured == 0
+
+
+def _push_all(an, frames: np.ndarray, sizes) -> list:
+    """``frames`` through the analyzer ``an`` in pushes of ``sizes``
+    frames (the rest in the last), then its flush; the result dicts."""
+    results, i = [], 0
+    for n in sizes:
+        results.extend(an.push(list(frames[i: i + n])))
+        i += n
+    results.extend(an.push(list(frames[i:])))
+    return results + an.flush()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["farneback", "dis"])
+def test_drain_returns_before_the_next_window_ends(cuda_device, algorithm):
+    """Draining window k waits for window k alone: with window k+1 and a
+    long spin queued behind it on the analyzer's stream, the drain
+    returns while the spin still runs. Its results, and the clip's, equal
+    the eager program's bit for bit, on the first run (window k eager,
+    then captured) and on the second (every window replayed)."""
+    frames = moving_frames(400, 256, seed=13)
+    cfg = PipelineConfig(flow_algorithm=algorithm)
+    sizes = (40, 240)  # the ramp window, then a full window
+    eager = StreamingFlowAnalyzer(cfg, device=cuda_device)
+    eager._graphs = None
+    want = _push_all(eager, frames, sizes)
+    graphs = WindowGraphs()
+    for run in range(2):
+        an = StreamingFlowAnalyzer(cfg, device=cuda_device)
+        an._graphs = graphs
+        assert an.push(list(frames[:sizes[0]])) == []  # window 0 pending
+        spin_end = torch.cuda.Event()
+
+        def dispatch_then_spin(e, n_total, dispatch=an._dispatch):
+            dispatch(e, n_total)
+            torch.cuda._sleep(2_000_000_000)  # about a second
+            spin_end.record()
+
+        an._dispatch = dispatch_then_spin
+        drained = an.push(list(frames[sizes[0]: sum(sizes)]))
+        assert not spin_end.query(), f"run {run}: the drain waited"
+        del an._dispatch
+        assert len(drained) == 1 and len(an._pending) == 1
+        got = drained + _push_all(an, frames[sum(sizes):], ())
+        assert len(got) == len(want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            for k in KEYS:
+                np.testing.assert_array_equal(
+                    g[k], w[k], err_msg=f"run {run}, window {i}: {k}")
+        assert an.graphs_captured == (0 if run else 2)  # 30 and 240 pairs
+        if run:
+            assert an.windows_replayed == an.windows_dispatched
 
 
 @pytest.mark.cuda
